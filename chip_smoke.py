@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--save IMAGE.png]
 
-Phases, one line each; any failure exits 1 and prints no result:
+Phases, one line each or more; any failure exits 1 and prints no result:
 
-1. the card (nvidia-smi name and power limit) and the kernels' nvcc build;
+1. the card (nvidia-smi name and power limit) and the one nvcc build of
+   every kernel (csrc/*.cu);
 2. K1 `bvh_traverse` against its plain version (the chunked brute-force
    oracle) at the main path's batch of 262,144 rays: camera rays and
    random rays on the procedural scene, random rays on a random soup of
@@ -13,14 +14,36 @@ Phases, one line each; any failure exits 1 and prints no result:
    within K_TOL (expected 0: both round alike, nvcc --fmad=false);
    dropped_min all +inf;
 3. K2 `fetch_attrs` against its plain version on the same hits;
-4. the main path: render() at 1920x1080, 16 spp, 8 bounces, method
+4. the render path: render() at 1920x1080, 16 spp, 8 bounces, method
    "auto", on a procedural stand-in for helmet.glb (15,490 triangles in a
    depth-4 BVH, 3 materials, 2048^2 albedo + normal + metal-roughness
    textures, constant sky). The launch counters are zeroed just before
-   and read just after; both kernels must have run. Prints wall seconds,
+   and read just after; K1 and K2 must have run. Prints wall seconds,
    rays traced and Mrays/s, or the spp cut if the time budget forced one;
 5. a 128x128, 4 spp render through the kernels against method="brute":
-   PSNR >= 45 dB.
+   PSNR >= 45 dB;
+6. K3 `denoise_u8` against its plain version at 1920x1080 on a seeded
+   image with planted fireflies and on the phase-4 frame: max abs
+   difference <= K3_TOL u8 (expected 0), and K3 removes the fireflies;
+7. the CLI path: in a temporary directory, the stand-in written as
+   `standin.glb` (embedded PNG textures, a node hierarchy with a
+   rotation/translation, a perspective camera node) and a 2048x1024
+   equirect `background.png`, then cli.main() in-process at 1920x1080,
+   16 spp (phase 4's cut, if any), 8 bounces, -D; the counters are zeroed
+   just before and read just after: K1, K2 and K3 must have run, the
+   output must decode to a textured frame whose sky carries the env map.
+   Before it, the host's time to decode the GLB's 2048^2 albedo texture and
+   background.png (PNGs filtered per row like a real encoder's); after it,
+   `python -m raytracing_c_tpu_torch` at 64x64 with -D in a subprocess.
+
+Kernel times: `kernel_ms` is CUDA events around back-to-back calls of the
+wrapper after a warm-up call (20 for K1, 50 for K2 and K3), with the
+inputs warm in L2; it includes any gap where the host launches slower
+than the card runs. `device_ms` is the profiler's device time per launch
+of the kernel itself, each launch after a read of a buffer larger than
+L2, so that it reads its inputs from device memory as its bytes bound
+assumes. The kernels line reports `device_ms` as `ms`, beside its bound
+(raytracing_c_tpu_torch/utils/bounds.py).
 
 The second-to-last line is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository,
@@ -29,13 +52,17 @@ it exits 2 before printing anything but the reason.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
-import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -43,9 +70,13 @@ sys.path.insert(0, HERE)
 WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 16, 8
 BATCH_RAYS = 262_144  # the renderer's default ray arena (batch_pixels = 262144 // spp)
 K_TOL = 1e-5
+K3_TOL = 1  # u8
 PSNR_MIN = 45.0
-#: wall budget for the main-path render; beyond it spp is cut (and printed)
-RENDER_BUDGET_S = 420.0
+#: wall budget for each full-size render; beyond it spp is cut (and printed)
+RENDER_BUDGET_S = 300.0
+
+#: bytes read between two timed launches, to empty the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 
 
 def _gpu_line() -> str:
@@ -59,13 +90,24 @@ def _gpu_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# Scenes (numpy, from a seed)
+# The helmet.glb stand-in (numpy, from a seed) and its files
 # ---------------------------------------------------------------------------
 
+#: the stand-in's 3 materials: textured PBR, an anisotropic metal band and
+#: a sheen floor
+STANDIN_MATERIALS = (
+    dict(name="textured", base_color=(1.0, 1.0, 1.0), roughness=1.0, metalness=1.0,
+         normal_strength=1.0, sheen=0.0, sheen_tint=0.0, anisotropic=0.0, textured=True),
+    dict(name="band", base_color=(1.0, 0.78, 0.34), roughness=0.3, metalness=1.0,
+         normal_strength=0.0, sheen=0.0, sheen_tint=0.0, anisotropic=0.3, textured=False),
+    dict(name="floor", base_color=(0.5, 0.5, 0.55), roughness=0.8, metalness=0.0,
+         normal_strength=0.0, sheen=0.5, sheen_tint=0.5, anisotropic=0.0, textured=False),
+)
+STANDIN_FOV_DEG = 45.0
 
-def _textures(rng, np):
-    """Procedural 2048^2 albedo, 1024^2 normal map, 1024^2 metal-roughness."""
-    n = 2048
+
+def _textures(rng, np, n=2048, m=1024):
+    """Procedural n^2 albedo, m^2 normal map, m^2 metal-roughness."""
     y, x = np.mgrid[0:n, 0:n].astype(np.float32) / n
     check = ((np.floor(x * 32) + np.floor(y * 32)) % 2).astype(np.float32)
     noise = rng.uniform(0.0, 0.15, (n, n)).astype(np.float32)
@@ -73,7 +115,6 @@ def _textures(rng, np):
                        0.35 + 0.25 * check], -1) - noise[..., None]
     albedo = (np.clip(albedo, 0, 1) * 255).astype(np.uint8)
 
-    m = 1024
     y, x = np.mgrid[0:m, 0:m].astype(np.float32) * (2 * np.pi * 24 / m)
     hx = np.cos(x) * np.sin(y)  # d/dx of sin(x) sin(y)
     hy = np.sin(x) * np.cos(y)
@@ -127,35 +168,28 @@ def _displaced_sphere(np, n=88):
     return pos, nrm, uv
 
 
-def procedural_scene(ps, np, torch):
-    """The helmet.glb stand-in: displaced sphere (15,488 triangles) on a
-    floor quad, 3 materials, textured PBR."""
+#: floor quad corners (x, z) at y = -1.1, and its two triangles
+_FLOOR_XZ = ((-4.0, -4.0), (-4.0, 4.0), (4.0, 4.0), (4.0, -4.0))
+_FLOOR_TRIS = ((0, 1, 2), (0, 2, 3))
+_FLOOR_Y = -1.1
+
+
+def standin_parts(np, n=88, tex=2048):
+    """The helmet.glb stand-in as host arrays: a displaced sphere of n x n
+    quads (2 n^2 triangles; material 1 on its equatorial band, else 0) on
+    a floor quad (material 2), its textures (tex^2 albedo, (tex/2)^2
+    normal and metal-roughness) and the camera-to-world view matrix.
+    Returns (positions, normals, uvs, mat_id), textures, view."""
     rng = np.random.default_rng(0)
-    pos, nrm, uv = _displaced_sphere(np)
-    band = (np.abs(pos.mean(1)[:, 1]) < 0.25)
-    mat = np.where(band, 1, 0).astype(np.int32)
-    floor = np.array([[[-4, -1.1, -4], [-4, -1.1, 4], [4, -1.1, 4]],
-                      [[-4, -1.1, -4], [4, -1.1, 4], [4, -1.1, -4]]], np.float32)
+    pos, nrm, uv = _displaced_sphere(np, n)
+    mat = np.where(np.abs(pos.mean(1)[:, 1]) < 0.25, 1, 0).astype(np.int32)
+    corners = np.array([[x, _FLOOR_Y, z] for x, z in _FLOOR_XZ], np.float32)
+    floor = corners[np.array(_FLOOR_TRIS)]
     fuv = (floor[:, :, [0, 2]] / 2).astype(np.float32)
     fn = np.zeros_like(floor)
     fn[..., 1] = 1.0
-    mesh = ps.HostMesh(
-        np.concatenate([pos, floor]), np.concatenate([nrm, fn]),
-        np.concatenate([uv, fuv]), np.concatenate([mat, np.full(2, 2, np.int32)]),
-    )
-    f = lambda *v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-    i = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
-    from raytracing_c_tpu_torch.utils.vec3 import Vec3
-
-    mats = ps.MaterialTable(
-        base_color=Vec3(f(1.0, 1.0, 0.5), f(1.0, 0.78, 0.5), f(1.0, 0.34, 0.55)),
-        emission=Vec3(f(0, 0, 0), f(0, 0, 0), f(0, 0, 0)),
-        roughness=f(1.0, 0.3, 0.8), metalness=f(1.0, 1.0, 0.0),
-        normal_strength=f(1.0, 0.0, 0.0), sheen=f(0.0, 0.0, 0.5),
-        sheen_tint=f(0.0, 0.0, 0.5), anisotropic=f(0.0, 0.3, 0.0),
-        tex_albedo=i(1, -1, -1), tex_normal=i(2, -1, -1), tex_mr=i(3, -1, -1),
-        tex_emission=i(-1, -1, -1), shader_kind=i(0, 0, 0),
-    ).with_rows()
+    arrays = (np.concatenate([pos, floor]), np.concatenate([nrm, fn]),
+              np.concatenate([uv, fuv]), np.concatenate([mat, np.full(2, 2, np.int32)]))
 
     eye, target = np.array([0.0, 0.5, 3.3]), np.array([0.0, -0.15, 0.0])
     fwd = (target - eye) / np.linalg.norm(target - eye)
@@ -164,12 +198,36 @@ def procedural_scene(ps, np, torch):
     up = np.cross(right, fwd)
     view = np.eye(4, dtype=np.float32)
     view[:3, 0], view[:3, 1], view[:3, 2], view[:3, 3] = right, up, -fwd, eye
-    return ps.build_scene(mesh, mats, ps.TextureAtlas.pack(_textures(rng, np)),
+    return arrays, _textures(rng, np, tex, tex // 2), view
+
+
+def procedural_scene(ps, np, torch, device):
+    """The helmet.glb stand-in as a port scene on `device`: displaced
+    sphere (15,488 triangles) on a floor quad, 3 materials, textured PBR,
+    constant sky."""
+    from raytracing_c_tpu_torch.utils.vec3 import Vec3
+
+    (pos, nrm, uv, mat), textures, view = standin_parts(np)
+    mats = STANDIN_MATERIALS
+    f = lambda k: torch.tensor([m[k] for m in mats], dtype=torch.float32)  # noqa: E731
+    i = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    base = torch.tensor([m["base_color"] for m in mats], dtype=torch.float32)
+    table = ps.MaterialTable(
+        base_color=Vec3(base[:, 0].contiguous(), base[:, 1].contiguous(),
+                        base[:, 2].contiguous()),
+        emission=Vec3(*(torch.zeros(3) for _ in range(3))),
+        roughness=f("roughness"), metalness=f("metalness"),
+        normal_strength=f("normal_strength"), sheen=f("sheen"),
+        sheen_tint=f("sheen_tint"), anisotropic=f("anisotropic"),
+        tex_albedo=i(1, -1, -1), tex_normal=i(2, -1, -1), tex_mr=i(3, -1, -1),
+        tex_emission=i(-1, -1, -1), shader_kind=i(0, 0, 0),
+    ).with_rows()
+    return ps.build_scene(ps.HostMesh(pos, nrm, uv, mat), table, ps.TextureAtlas.pack(textures),
                           ps.Background.constant((0.6, 0.7, 0.9)),
-                          ps.Camera.look(view, 45.0))
+                          ps.Camera.look(view, STANDIN_FOV_DEG), device=device)
 
 
-def soup_scene(ps, np, n=15452):
+def soup_scene(ps, np, device, n=15452):
     """Random soup of helmet.glb's triangle count (tests/helpers.random_mesh)."""
     rng = np.random.default_rng(1)
     pos = (rng.uniform(-1, 1, (n, 1, 3)) + rng.normal(0, 0.12, (n, 3, 3))).astype(np.float32)
@@ -178,7 +236,221 @@ def soup_scene(ps, np, n=15452):
     mesh = ps.HostMesh(pos, np.repeat(ng[:, None], 3, 1).astype(np.float32),
                        rng.uniform(0, 1, (n, 3, 2)).astype(np.float32), np.zeros(n, np.int32))
     return ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
-                          ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default())
+                          ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default(),
+                          device=device)
+
+
+#: the GLB mesh node's local transform (under a root node translated by
+#: _GLB_ROOT_T): a rotation of 20 degrees about +y and a translation
+_GLB_ROT_DEG = 20.0
+_GLB_NODE_T = (0.05, 0.0, -0.05)
+_GLB_ROOT_T = (0.0, 0.02, 0.0)
+
+
+def write_glb(path: str, n: int = 88, tex: int = 2048) -> None:
+    """Write the stand-in (standin_parts(n, tex)) as a binary glTF: three
+    primitives (one per material: unindexed, u32-indexed, u16-indexed),
+    PNG textures encoded by the port (two in bufferViews, one as a data
+    URI), KHR_materials_sheen on the floor, the mesh node rotated and
+    translated under a translated root node, and a perspective camera node
+    holding the view matrix."""
+    import base64
+    import struct
+
+    import numpy as np
+
+    from raytracing_c_tpu_torch.io.image_io import encode_png
+
+    (pos, nrm, uv, mat), textures, view = standin_parts(np, n, tex)
+    blob = bytearray()
+    views, accessors = [], []
+
+    def add_view(data: bytes) -> int:
+        blob.extend(b"\0" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)})
+        blob.extend(data)
+        return len(views) - 1
+
+    def add_accessor(arr, ctype: int, kind: str) -> int:
+        acc = {"bufferView": add_view(np.ascontiguousarray(arr).tobytes()),
+               "componentType": ctype, "count": len(arr), "type": kind}
+        if kind == "VEC3":
+            acc["min"], acc["max"] = arr.min(0).tolist(), arr.max(0).tolist()
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    # glTF stores the mesh in the node's local frame: undo the node's
+    # world transform so the world-space stand-in is standin_parts'
+    a = math.radians(_GLB_ROT_DEG)
+    rot = np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]])
+    shift = np.add(_GLB_NODE_T, _GLB_ROOT_T)
+    local_pos = ((pos.reshape(-1, 3) - shift) @ rot).astype(np.float32)
+    local_nrm = (nrm.reshape(-1, 3) @ rot).astype(np.float32)
+    flat_uv = uv.reshape(-1, 2)
+    prims = []
+    for m in range(2):
+        rows = np.flatnonzero(np.repeat(mat == m, 3))
+        prim = {"attributes": {"POSITION": add_accessor(local_pos[rows], 5126, "VEC3"),
+                               "NORMAL": add_accessor(local_nrm[rows], 5126, "VEC3"),
+                               "TEXCOORD_0": add_accessor(flat_uv[rows], 5126, "VEC2")},
+                "material": m}
+        if m == 1:
+            prim["indices"] = add_accessor(np.arange(len(rows), dtype=np.uint32), 5125, "SCALAR")
+        prims.append(prim)
+    corners = np.array([[x, _FLOOR_Y, z] for x, z in _FLOOR_XZ], np.float32)
+    prims.append({"attributes": {
+        "POSITION": add_accessor(((corners - shift) @ rot).astype(np.float32), 5126, "VEC3"),
+        "NORMAL": add_accessor((np.tile([[0.0, 1.0, 0.0]], (4, 1)) @ rot).astype(np.float32),
+                               5126, "VEC3"),
+        "TEXCOORD_0": add_accessor((corners[:, [0, 2]] / 2).astype(np.float32), 5126, "VEC2")},
+        "indices": add_accessor(np.array(_FLOOR_TRIS, np.uint16).reshape(-1), 5123, "SCALAR"),
+        "material": 2})
+
+    pngs = [encode_png(t) for t in textures]
+    images = [{"bufferView": add_view(pngs[0]), "mimeType": "image/png"},
+              {"bufferView": add_view(pngs[1]), "mimeType": "image/png"},
+              {"uri": "data:image/png;base64," + base64.b64encode(pngs[2]).decode()}]
+    materials = []
+    for k, m in enumerate(STANDIN_MATERIALS):
+        pbr = {"baseColorFactor": [*m["base_color"], 1.0], "metallicFactor": m["metalness"],
+               "roughnessFactor": m["roughness"]}
+        mat_doc = {"name": m["name"], "pbrMetallicRoughness": pbr}
+        if m["textured"]:
+            pbr["baseColorTexture"] = {"index": 0}
+            pbr["metallicRoughnessTexture"] = {"index": 2}
+            mat_doc["normalTexture"] = {"index": 1, "scale": m["normal_strength"]}
+        if m["sheen"]:
+            mat_doc["extensions"] = {"KHR_materials_sheen": {
+                "sheenColorFactor": [m["sheen"]] * 3, "sheenRoughnessFactor": 0.5}}
+        materials.append(mat_doc)
+
+    half = a / 2
+    doc = {
+        "asset": {"version": "2.0", "generator": "chip_smoke.write_glb"},
+        "extensionsUsed": ["KHR_materials_sheen"],
+        "scene": 0,
+        "scenes": [{"nodes": [0, 2]}],
+        "nodes": [
+            {"name": "root", "translation": list(_GLB_ROOT_T), "children": [1]},
+            {"name": "standin", "mesh": 0, "translation": list(_GLB_NODE_T),
+             "rotation": [0.0, math.sin(half), 0.0, math.cos(half)]},
+            {"name": "camera", "camera": 0,
+             "matrix": view.astype(np.float64).T.reshape(-1).tolist()},
+        ],
+        "cameras": [{"type": "perspective", "perspective": {
+            "yfov": math.radians(STANDIN_FOV_DEG), "aspectRatio": WIDTH / HEIGHT,
+            "znear": 0.01}}],
+        "meshes": [{"name": "standin", "primitives": prims}],
+        "materials": materials,
+        "textures": [{"source": 0}, {"source": 1}, {"source": 2}],
+        "images": images,
+        "accessors": accessors,
+        "bufferViews": views,
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    blob.extend(b"\0" * (-len(blob) % 4))
+    total = 12 + 8 + len(js) + 8 + len(blob)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, total))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+
+
+def write_obj_mtl(directory: str, n: int = 88, tex: int = 2048) -> str:
+    """Write the stand-in as standin.obj + standin.mtl + its PNG textures
+    in `directory` (the floor as one quad face, fan-triangulated by the
+    loaders; the band with negative indices; the PBR MTL keys Pr, Pm, Ps,
+    aniso, norm, map_Kd, map_Pr). Returns the OBJ path."""
+    import numpy as np
+
+    from raytracing_c_tpu_torch.io.image_io import write_png
+
+    (pos, nrm, uv, mat), textures, _view = standin_parts(np, n, tex)
+    for name, img in zip(("albedo.png", "normal.png", "mr.png"), textures):
+        write_png(os.path.join(directory, name), img)
+    mtl = []
+    for m in STANDIN_MATERIALS:
+        mtl += [f"newmtl {m['name']}", "Kd {} {} {}".format(*m["base_color"]),
+                "Ke 0 0 0", f"Pr {m['roughness']}", f"Pm {m['metalness']}"]
+        if m["sheen"]:
+            mtl.append(f"Ps {m['sheen']}")
+        if m["anisotropic"]:
+            mtl.append(f"aniso {m['anisotropic']}")
+        if m["textured"]:
+            mtl += ["norm normal.png", "map_Kd albedo.png", "map_Pr mr.png"]
+    with open(os.path.join(directory, "standin.mtl"), "w") as f:
+        f.write("\n".join(mtl) + "\n")
+
+    lines = ["# chip_smoke.write_obj_mtl: the helmet.glb stand-in", "mtllib standin.mtl"]
+    count = 0
+    for m, name in ((0, "textured"), (1, "band")):
+        sel = mat == m
+        p, nn, t = pos[sel].reshape(-1, 3), nrm[sel].reshape(-1, 3), uv[sel].reshape(-1, 2)
+        lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in p]
+        lines += [f"vn {x:.9g} {y:.9g} {z:.9g}" for x, y, z in nn]
+        lines += [f"vt {x:.9g} {y:.9g}" for x, y in t]
+        lines.append(f"usemtl {name}")
+        k = len(p)
+        if m == 0:
+            lines += [f"f {count + i + 1}/{count + i + 1}/{count + i + 1} "
+                      f"{count + i + 2}/{count + i + 2}/{count + i + 2} "
+                      f"{count + i + 3}/{count + i + 3}/{count + i + 3}" for i in range(0, k, 3)]
+        else:  # relative indices
+            lines += [f"f {i - k}/{i - k}/{i - k} {i + 1 - k}/{i + 1 - k}/{i + 1 - k} "
+                      f"{i + 2 - k}/{i + 2 - k}/{i + 2 - k}" for i in range(0, k, 3)]
+        count += k
+    lines += [f"v {x} {_FLOOR_Y} {z}" for x, z in _FLOOR_XZ]
+    lines += [f"vt {x / 2} {z / 2}" for x, z in _FLOOR_XZ]
+    lines += ["usemtl floor", "f " + " ".join(f"{count + i}/{count + i}" for i in range(1, 5))]
+    path = os.path.join(directory, "standin.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def make_env_map(width: int = 2048, height: int = 1024, seed: int = 0):
+    """An equirect sky (u8 sRGB, (height, width, 3)): zenith-to-horizon
+    gradient, a darker ground, a sun disk of 2 degrees radius at 40 degrees
+    elevation, and seeded noise of 2 u8."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v = (np.arange(height, dtype=np.float64) + 0.5) / height
+    u = (np.arange(width, dtype=np.float64) + 0.5) / width
+    elev = (0.5 - v)[:, None] * np.pi  # +pi/2 at the top row
+    azim = (u[None, :] - 0.5) * 2 * np.pi
+    s = np.clip(np.sin(elev), 0.0, 1.0)[..., None] ** 0.5
+    sky = (1 - s) * np.array([0.85, 0.9, 1.0]) + s * np.array([0.25, 0.45, 0.85])
+    ground = np.array([0.35, 0.3, 0.25])
+    img = np.where((elev > 0)[..., None], sky, ground) * np.ones((1, width, 1))
+    sun_e, sun_a = math.radians(40.0), math.radians(-60.0)
+    cos_d = (np.sin(elev) * math.sin(sun_e)
+             + np.cos(elev) * math.cos(sun_e) * np.cos(azim - sun_a))
+    img[cos_d > math.cos(math.radians(2.0))] = 1.0
+    img = img * 255 + rng.normal(0.0, 2.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_env_map(path: str, width: int = 2048, height: int = 1024, seed: int = 0) -> None:
+    from raytracing_c_tpu_torch.io.image_io import write_png
+
+    write_png(path, make_env_map(width, height, seed))
+
+
+def firefly_image(np, h: int, w: int, seed: int = 6):
+    """A smooth gradient with 2 u8 of noise and about one isolated white
+    firefly per 2,000 pixels. Returns (image (h, w, 3) u8, firefly mask)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([60 + 80 * x / w, 70 + 60 * y / h, 90 + 40 * (x + y) / (w + h)], -1)
+    img = np.clip(base + rng.normal(0.0, 2.0, base.shape), 0, 255).astype(np.uint8)
+    k = max(1, h * w // 2000)
+    mask = np.zeros((h, w), bool)
+    mask[rng.integers(0, h, k), rng.integers(0, w, k)] = True
+    img[mask] = 255
+    return img, mask
 
 
 def random_rays(n, seed, dev, np, torch, Vec3):
@@ -211,23 +483,37 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds per launch of the CUDA kernel whose name
+    holds `kernel`, from torch.profiler (CUPTI) over `reps` calls after one
+    warm-up call: the kernel's own time, whatever the host's launch rate.
+    Before each call a read of L2_FLUSH_BYTES evicts the previous call's
+    inputs and outputs from L2. The profiler must see every launch, or all
+    but one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+        if kernel in e.key and e.device_type.name == "CUDA" and t > 0:
+            us += t
+            n += e.count
+    if not reps - 1 <= n <= reps:
+        raise RuntimeError(f"profiler saw {n} launches of {kernel}, expected {reps}")
+    return us / n / 1e3
+
+
 def psnr(np, a, b) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return math.inf if mse == 0 else 10.0 * math.log10(255.0**2 / mse)
-
-
-def write_png(path: str, img) -> None:
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (len(data).to_bytes(4, "big") + tag + data
-                + zlib.crc32(tag + data).to_bytes(4, "big"))
-
-    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 # ---------------------------------------------------------------------------
@@ -250,15 +536,30 @@ def compare_k1(torch, tc, label, scene, o, d, fuse):
     dropped_inf = bool(torch.isinf(got["dropped_min"]).all())
     hit_rate = float(hit.float().mean())
     ok = bad_tri == 0 and err <= K_TOL and miss_ok and dropped_inf and hit_rate > 0.1
-    ms = cuda_ms(torch, lambda: tc.bvh_traverse(o, d, scene.triangles, scene.bvh,
-                                                fuse_attr=fuse), 20)
+    launch = lambda: tc.bvh_traverse(o, d, scene.triangles, scene.bvh,  # noqa: E731
+                                     fuse_attr=fuse)
+    ms = cuda_ms(torch, launch, 20)
+    dev_ms = device_ms(torch, launch, 20, "bvh_traverse")
     plain_ms = cuda_ms(torch, lambda: tc.bvh_traverse_plain(o, d, scene.triangles,
                                                             fuse_attr=fuse), 1)
     print(f"phase2 K1 {label}: rays={o.shape[0]} hit={hit_rate:.4f} "
           f"fused={fuse} tri_mismatch={bad_tri} max_abs_err={err:.3g} "
-          f"dropped_min_inf={dropped_inf} kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
-    return ok, err, ms, plain_ms, got
+          f"dropped_min_inf={dropped_inf} kernel_ms={ms:.4f} device_ms={dev_ms:.4f} "
+          f"plain_ms={plain_ms:.2f} {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, err, dev_ms, plain_ms, got
+
+
+def run_cli(cli, argv, cwd):
+    """cli.main(argv) in-process from `cwd`; returns (exit code, stdout)."""
+    buf = io.StringIO()
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        os.chdir(old)
+    return rc, buf.getvalue()
 
 
 def main(argv) -> int:
@@ -273,31 +574,46 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     try:
+        from raytracing_c_tpu_torch import cli
+        from raytracing_c_tpu_torch.io import image_io
+        from raytracing_c_tpu_torch.io.gltf_loader import parse_glb
         from raytracing_c_tpu_torch.models import scene as ps
+        from raytracing_c_tpu_torch.ops import cuda_build
+        from raytracing_c_tpu_torch.ops import denoise as dn
         from raytracing_c_tpu_torch.ops import traverse_cuda as tc
         from raytracing_c_tpu_torch.render import camera, integrator, renderer
-        from raytracing_c_tpu_torch.utils import rng
+        from raytracing_c_tpu_torch.utils import bounds, rng
         from raytracing_c_tpu_torch.utils.vec3 import Vec3
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
     save = argv[argv.index("--save") + 1] if "--save" in argv else None
 
+    def reset_counts():
+        tc.reset_launch_counts()
+        dn.denoise_u8.launches = 0
+
+    def counts():
+        return {**tc.launch_counts(), "denoise_u8": dn.denoise_u8.launches}
+
+    t_start = time.perf_counter()
     failures = []
     dev = torch.device("cuda", 0)
     gpu = _gpu_line()
     print(f"phase1 gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    build = tc.build_library()
+    build = cuda_build.build_libraries()
     tc._library()
-    print(f"phase1 build: nvcc {build['seconds']:.1f} s -> {build['path']}", flush=True)
+    dn._library()
+    print(f"phase1 build: one nvcc per source, {len(build['libraries'])} in parallel "
+          f"({', '.join(sorted(build['libraries']))}) in {build['seconds']:.1f} s -> "
+          f"{build['dir']}", flush=True)
 
     t0 = time.perf_counter()
-    scene = procedural_scene(ps, np, torch)
-    soup = soup_scene(ps, np)
-    print(f"phase1 scenes: procedural {scene.n_triangles} triangles depth "
-          f"{scene.bvh.depth}; soup {soup.n_triangles} triangles depth {soup.bvh.depth}; "
-          f"host build {time.perf_counter() - t0:.1f} s", flush=True)
-    scene_d, soup_d = scene.to(dev), soup.to(dev)
+    scene_d = procedural_scene(ps, np, torch, dev)
+    soup_d = soup_scene(ps, np, dev)
+    print(f"phase1 scenes: procedural {scene_d.n_triangles} triangles depth "
+          f"{scene_d.bvh.depth}; soup {soup_d.n_triangles} triangles depth "
+          f"{soup_d.bvh.depth}; build {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- phase 2: K1 against its plain version at the main path's batch ---
     # the render's batch that holds the image centre (its first tiles are sky)
@@ -329,6 +645,14 @@ def main(argv) -> int:
         if not ok:
             failures.append(f"K1 {label}")
     k1_ms, k1_plain_ms, cam_hit = runs["camera/procedural"]
+    t0 = time.perf_counter()
+    work = bounds.k1_work(scene_d, cam_o, cam_d)
+    k1_bound = bounds.bound(work)
+    print(f"phase2 K1 bound camera/procedural: host re-walk of {work['sample']} rays "
+          f"({time.perf_counter() - t0:.1f} s): {work['node_visits_per_ray']:.2f} node and "
+          f"{work['leaf_visits_per_ray']:.2f} leaf visits per ray; bytes {work['bytes']:.4g} "
+          f"ops {work['ops']:.4g} -> bound_ms={k1_bound['bound_ms']:.4f} "
+          f"({k1_bound['bound_by']}), share {k1_bound['bound_ms'] / k1_ms:.3f}", flush=True)
 
     # --- phase 3: K2 against its plain version on the camera hits ---
     attr_rows = scene_d.triangles.attr_rows
@@ -336,16 +660,21 @@ def main(argv) -> int:
     got2, want2 = tc.fetch_attrs(*args), tc.fetch_attrs_plain(*args)
     torch.cuda.synchronize()
     k2_err = float((got2 - want2).abs().max())
-    k2_ms = cuda_ms(torch, lambda: tc.fetch_attrs(*args), 50)
+    k2_event_ms = cuda_ms(torch, lambda: tc.fetch_attrs(*args), 50)
+    k2_ms = device_ms(torch, lambda: tc.fetch_attrs(*args), 50, "fetch_attrs")
     k2_plain_ms = cuda_ms(torch, lambda: tc.fetch_attrs_plain(*args), 10)
+    winners = int(torch.unique(cam_hit["tri"].clamp_min(0)).numel())
+    k2_bound = bounds.bound(bounds.k2_work(BATCH_RAYS, winners))
     k2_ok = k2_err <= K_TOL and bool(torch.isfinite(got2).all())
     print(f"phase3 K2 camera/procedural: rays={BATCH_RAYS} max_abs_err={k2_err:.3g} "
-          f"kernel_ms={k2_ms:.4f} plain_ms={k2_plain_ms:.4f} {'ok' if k2_ok else 'FAIL'}",
-          flush=True)
+          f"kernel_ms={k2_event_ms:.4f} device_ms={k2_ms:.4f} plain_ms={k2_plain_ms:.4f} "
+          f"winners={winners} "
+          f"bound_ms={k2_bound['bound_ms']:.4f} ({k2_bound['bound_by']}), share "
+          f"{k2_bound['bound_ms'] / k2_ms:.3f} {'ok' if k2_ok else 'FAIL'}", flush=True)
     if not k2_ok:
         failures.append("K2")
 
-    # --- phase 4: the main path through render() ---
+    # --- phase 4: the render path through render() ---
     rad, rays = integrator.trace_bucketed(scene_d, cam_o, cam_d, rng.fold_in(kb, 1), BOUNCES)
     finite = bool(torch.isfinite(rad.x).all() & torch.isfinite(rad.y).all()
                   & torch.isfinite(rad.z).all())
@@ -361,23 +690,23 @@ def main(argv) -> int:
         spp = max(1, int(SPP * RENDER_BUDGET_S / (per_batch_s * n_batches)))
         print(f"phase4 cut: {per_batch_s:.2f} s/batch x {n_batches} batches exceeds "
               f"{RENDER_BUDGET_S:.0f} s; rendering {spp} spp instead of {SPP}", flush=True)
-    tc.reset_launch_counts()
+    reset_counts()
     img, st = renderer.render(scene_d, WIDTH, HEIGHT, spp=spp, max_bounces=BOUNCES,
                               seed=0, method="auto")
-    launches = tc.launch_counts()
+    launches4 = counts()
     distinct = len(np.unique(img.reshape(-1, 3), axis=0))
-    main_ok = (launches["bvh_traverse"] > 0 and launches["fetch_attrs"] > 0
+    main_ok = (launches4["bvh_traverse"] > 0 and launches4["fetch_attrs"] > 0
                and img.shape == (HEIGHT, WIDTH, 3) and float(img.std()) > 5.0
                and distinct > 1000)
     print(f"phase4 render {WIDTH}x{HEIGHT} spp={spp} bounces={BOUNCES}: "
           f"wall_s={st.wall_ms / 1e3:.3f} rays={st.rays_traced} "
           f"mrays_per_s={st.mrays_per_sec:.4f} batches={st.batches} "
-          f"launches={launches} mean={float(img.mean()):.2f} std={float(img.std()):.2f} "
+          f"launches={launches4} mean={float(img.mean()):.2f} std={float(img.std()):.2f} "
           f"distinct_colors={distinct} {'ok' if main_ok else 'FAIL'}", flush=True)
     if not main_ok:
-        failures.append("main path")
+        failures.append("render path")
     if save:
-        write_png(save, img)
+        image_io.write_png(save, img)
 
     # --- phase 5: kernel path against the brute-force oracle ---
     kw = dict(spp=4, max_bounces=BOUNCES, seed=3)
@@ -391,19 +720,123 @@ def main(argv) -> int:
     if not ok5:
         failures.append("kernel vs brute image")
 
+    # --- phase 6: K3 against its plain version at the flagship frame size ---
+    fire, fire_mask = firefly_image(np, HEIGHT, WIDTH)
+    k3_err = 0
+    for label, im in (("fireflies", fire), ("phase-4 frame", img)):
+        x = torch.from_numpy(im).to(dev)
+        got3, want3 = dn.denoise_u8(x), dn.denoise_u8_plain(x)
+        torch.cuda.synchronize()
+        err = int((got3.int() - want3.int()).abs().max())
+        k3_err = max(k3_err, err)
+        changed = (got3 != x).any(-1).cpu().numpy()
+        line = (f"phase6 K3 {label} {WIDTH}x{HEIGHT}: max_abs_err={err} "
+                f"identical={bool((got3 == want3).all())} changed_share={changed.mean():.5f}")
+        ok6 = err <= K3_TOL
+        if label == "fireflies":
+            fixed = float(changed[fire_mask].mean())
+            ok6 = ok6 and changed.mean() > 0 and fixed >= 0.9
+            line += f" fireflies={int(fire_mask.sum())} fireflies_changed={fixed:.4f}"
+            xf = x
+        print(f"{line} {'ok' if ok6 else 'FAIL'}", flush=True)
+        if not ok6:
+            failures.append(f"K3 {label}")
+    k3_event_ms = cuda_ms(torch, lambda: dn.denoise_u8(xf), 50)
+    k3_ms = device_ms(torch, lambda: dn.denoise_u8(xf), 50, "denoise_u8_kernel")
+    k3_plain_ms = cuda_ms(torch, lambda: dn.denoise_u8_plain(xf), 5)
+    k3_bound = bounds.bound(bounds.k3_work(HEIGHT, WIDTH))
+    print(f"phase6 K3 timing: kernel_ms={k3_event_ms:.4f} device_ms={k3_ms:.4f} "
+          f"plain_ms={k3_plain_ms:.4f} "
+          f"bound_ms={k3_bound['bound_ms']:.4f} ({k3_bound['bound_by']}; bytes "
+          f"{k3_bound['bytes_ms']:.4f} ms, operations {k3_bound['ops_ms']:.4f} ms) "
+          f"share {k3_bound['bound_ms'] / k3_ms:.3f}", flush=True)
+
+    # --- phase 7: the CLI path on a GLB with an env map ---
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        write_glb(os.path.join(tmp, "standin.glb"))
+        write_env_map(os.path.join(tmp, "background.png"))
+        print(f"phase7 files: standin.glb {os.path.getsize(os.path.join(tmp, 'standin.glb'))} B, "
+              f"background.png {os.path.getsize(os.path.join(tmp, 'background.png'))} B, "
+              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+        with open(os.path.join(tmp, "standin.glb"), "rb") as f:
+            doc, blob = parse_glb(f.read())
+        view = doc["bufferViews"][doc["images"][0]["bufferView"]]
+        with open(os.path.join(tmp, "background.png"), "rb") as f:
+            pngs = [("albedo 2048x2048", blob[view["byteOffset"]:][:view["byteLength"]]),
+                    ("background.png 2048x1024", f.read())]
+        for label, data in pngs:
+            kinds = np.bincount(image_io.png_scanlines(data)[4], minlength=5).tolist()
+            t0 = time.perf_counter()
+            image_io.decode_png(data)
+            print(f"phase7 png decode {label}: rows by filter (None, Sub, Up, Average, "
+                  f"Paeth) {kinds}: {time.perf_counter() - t0:.3f} s", flush=True)
+        out = os.path.join(tmp, "cli_out.png")
+        argv7 = ["-W", str(WIDTH), "-H", str(HEIGHT), "-S", str(spp), "-B", str(BOUNCES),
+                 "-D", "-V", "-O", out, "standin.glb"]
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, text = run_cli(cli, argv7, tmp)
+        cli_wall = time.perf_counter() - t0
+        launches7 = counts()
+
+        def num(pattern):
+            m = re.search(pattern, text, re.M)
+            return float(m.group(1)) if m else float("nan")
+
+        img7 = image_io.load_image_rgb_u8(out) if rc == 0 else np.zeros((1, 1, 3), np.uint8)
+        sky = len(np.unique(img7[:64].reshape(-1, 3), axis=0))
+        ok7 = (rc == 0 and all(v > 0 for v in launches7.values())
+               and img7.shape == (HEIGHT, WIDTH, 3) and float(img7.std()) > 5.0 and sky > 1)
+        said = {key: num(pattern) for key, pattern in (
+            ("load_bvh_ms", r"Bvh generated in (\d+)ms"), ("render_ms", r"^(\d+)ms$"),
+            ("mrays_per_s", r"([\d.]+) Mrays/second"), ("denoise_ms", r"Denoising: (\d+)ms"),
+            ("write_ms", r"Output file written in (\d+)ms"))}
+        print(f"phase7 cli {' '.join(argv7)}: exit={rc} wall_s={cli_wall:.3f} "
+              + " ".join(f"{k}={v:g}" for k, v in said.items())
+              + f" launches={launches7} shape={img7.shape} std={float(img7.std()):.2f} "
+              f"sky_colors={sky} {'ok' if ok7 else 'FAIL'}", flush=True)
+        if not ok7:
+            print(text[-4000:], flush=True)
+            failures.append("CLI path")
+
+        x_png = os.path.join(tmp, "x.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raytracing_c_tpu_torch", "-W", "64", "-H", "64", "-S", "1",
+             "-B", "2", "-D", "-O", x_png, "standin.glb"],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
+            timeout=600)
+        ok_m = proc.returncode == 0 and image_io.load_image_rgb_u8(x_png).shape == (64, 64, 3)
+        print(f"phase7 python -m raytracing_c_tpu_torch 64x64 -D: exit={proc.returncode} "
+              f"wall_s={time.perf_counter() - t0:.1f} {'ok' if ok_m else 'FAIL'}", flush=True)
+        if not ok_m:
+            print(proc.stdout[-2000:] + proc.stderr[-4000:], flush=True)
+            failures.append("python -m")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", flush=True)
         return 1
+
+    def entry(name, source, replaces, err, ms, plain_ms, b):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches7[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None}
+
     src = "raytracing_c_tpu_torch/csrc/traverse.cu"
     kernels = [
-        {"name": "bvh_traverse", "route": "cuda", "source": src,
-         "replaces": "raytracing_c_tpu/ops/traverse_pallas.py:1391",
-         "launches": launches["bvh_traverse"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fetch_attrs", "route": "cuda", "source": src,
-         "replaces": "raytracing_c_tpu/ops/traverse_pallas.py:1646",
-         "launches": launches["fetch_attrs"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("bvh_traverse", src, "raytracing_c_tpu/ops/traverse_pallas.py:1391",
+              k1_err, k1_ms, k1_plain_ms, k1_bound),
+        entry("fetch_attrs", src, "raytracing_c_tpu/ops/traverse_pallas.py:1646",
+              k2_err, k2_ms, k2_plain_ms, k2_bound),
+        entry("denoise_u8", "raytracing_c_tpu_torch/csrc/denoise.cu",
+              "raytracing_c_tpu/ops/denoise_pallas.py:98", k3_err, k3_ms, k3_plain_ms,
+              k3_bound),
     ]
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))

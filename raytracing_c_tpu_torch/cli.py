@@ -1,0 +1,251 @@
+"""Command-line renderer.
+
+Counterpart of `raytracing_c_tpu/cli.py`, with the same flag surface
+(driver.c:420-508):
+  -W width -H height -S samples -T threads -B max_bounces -V -D
+  -O output.(png|qoi|ppm) model.(obj|glb|gltf)
+defaults 1024x1024, 16 spp, 8 bounces, output.png (driver.c:733-742), and
+the double-dashed extensions --seed, --bg, --no-bg, --batch-pixels,
+--brute-force, --method, --debug-normals, --tonemap, --profile, --nearest,
+--rr. `main` renders on `device` (CUDA unless the caller asks for the CPU)
+and, with -D, denoises the frame there through the K3 kernel before its
+one read-back; a failure of the kernel is fatal. --method takes the JAX
+package's names: every traversal maps to "bvh" (the exact K1 kernel),
+brute to the brute-force oracle. --profile DIR writes a torch.profiler
+chrome trace to DIR/trace.json. --nee, --save-scene and --load-scene are
+not ported yet and exit 1.
+
+-T is accepted for CLI parity; device execution replaces host threads.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import time
+
+#: flags parse_args accepts whose feature the port does not have yet
+NOT_PORTED = (("nee", "--nee"), ("save_scene", "--save-scene"), ("load_scene", "--load-scene"))
+
+
+def print_usage(prog: str) -> None:
+    print(
+        f"{prog} -W <width> -H <height> -S <samples> -T <threads> "
+        "-B <max_bounces> <model.(obj|glb|gltf)> -O output.(qoi|png|ppm)",
+        file=sys.stderr,
+    )
+
+
+def parse_args(argv: list[str]):
+    cfg = {
+        "width": 1024,
+        "height": 1024,
+        "samples": 16,
+        "max_bounces": 8,
+        "n_threads": 1,
+        "verbose": False,
+        "denoise": False,
+        "output": "output.png",
+        "model": None,
+        "seed": 0,
+        "background": "background.png",
+        "batch_pixels": None,
+        "brute_force": False,
+        "debug_normals": False,
+        "rr": False,
+        "nee": False,
+        "tonemap": None,
+        "save_scene": None,
+        "load_scene": None,
+        "profile": None,
+        "texture_mode": "bilinear",
+        "method": None,  # --method: force a traversal method (default auto)
+    }
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "-V":
+            cfg["verbose"] = True
+            i += 1
+        elif a == "-D":
+            cfg["denoise"] = True
+            i += 1
+        elif a in ("-W", "-H", "-S", "-T", "-B", "-O"):
+            if i + 1 >= len(argv):
+                return None
+            v = argv[i + 1]
+            key = {
+                "-W": "width", "-H": "height", "-S": "samples",
+                "-T": "n_threads", "-B": "max_bounces", "-O": "output",
+            }[a]
+            cfg[key] = v if a == "-O" else int(v)
+            i += 2
+        elif a == "--no-bg":
+            cfg["background"] = None
+            i += 1
+        elif a in ("--seed", "--bg", "--batch-pixels", "--tonemap",
+                   "--save-scene", "--load-scene", "--profile",
+                   "--method"):
+            if i + 1 >= len(argv):
+                return None
+            key = a[2:].replace("-", "_")
+            if a == "--bg":
+                key = "background"
+            v = argv[i + 1]
+            if a == "--method" and v not in (
+                "auto", "pallas", "pallas_fused", "pallas_fast", "topk",
+                "topk_fast", "dfs", "brute",
+            ):
+                print(f"unknown --method '{v}'", file=sys.stderr)
+                return None
+            if a == "--tonemap" and v not in ("aces", "reinhard"):
+                return None
+            cfg[key] = int(v) if a in ("--seed", "--batch-pixels") else v
+            i += 2
+        elif a == "--brute-force":
+            cfg["brute_force"] = True
+            i += 1
+        elif a == "--nearest":
+            cfg["texture_mode"] = "nearest"
+            i += 1
+        elif a == "--debug-normals":
+            cfg["debug_normals"] = True
+            i += 1
+        elif a == "--rr":
+            cfg["rr"] = True
+            i += 1
+        elif a == "--nee":
+            cfg["nee"] = True
+            i += 1
+        elif a.startswith("-"):
+            return None
+        else:
+            if cfg["model"] is not None:
+                return None
+            cfg["model"] = a
+            i += 1
+    if cfg["model"] is None and cfg["load_scene"] is None:
+        return None
+    return cfg
+
+
+def render_method(cfg: dict) -> str:
+    """The port's render() method for the JAX CLI's --method/--brute-force."""
+    m = cfg["method"]
+    if m is None:
+        return "brute" if cfg["brute_force"] else "auto"
+    return m if m in ("auto", "brute") else "bvh"
+
+
+def main(argv: list[str] | None = None, device="cuda") -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    cfg = parse_args(argv)
+    if cfg is None:
+        print_usage(sys.argv[0])
+        return 1
+    for key, flag in NOT_PORTED:
+        if cfg[key]:
+            print(f"{flag}: not ported yet", file=sys.stderr)
+            return 1
+
+    import dataclasses
+
+    import torch
+
+    from raytracing_c_tpu_torch.io.image_io import write_image
+    from raytracing_c_tpu_torch.io.loader import load_scene
+    from raytracing_c_tpu_torch.models.scene import SHADER_DEBUG_NORMAL
+    from raytracing_c_tpu_torch.ops.denoise import denoise_u8
+    from raytracing_c_tpu_torch.render.renderer import render
+    from raytracing_c_tpu_torch.utils.progress import ProgressBar
+
+    warn = print if cfg["verbose"] else (lambda *a, **k: None)
+
+    t0 = time.perf_counter()
+    try:
+        scene = load_scene(cfg["model"], background_path=cfg["background"], warn=warn,
+                           device=device)
+    except FileNotFoundError as e:
+        # missing env map is fatal, matching the reference's load_texture
+        # error surface (driver.c:106-116)
+        print(e, file=sys.stderr)
+        return 1
+    bvh_ms = (time.perf_counter() - t0) * 1e3
+    dev = scene.device
+
+    if cfg["debug_normals"]:
+        mats = scene.materials
+        kind = torch.full_like(mats.shader_kind, SHADER_DEBUG_NORMAL)
+        scene = dataclasses.replace(
+            scene, materials=dataclasses.replace(mats, shader_kind=kind).with_rows())
+
+    if cfg["verbose"]:
+        print(f"Bvh generated in {bvh_ms:.0f}ms")
+        print(f"Width:     {cfg['width']}")
+        print(f"Height:    {cfg['height']}")
+        print(f"Samples:   {cfg['samples']}")
+        print(f"Bounces:   {cfg['max_bounces']}")
+        print(f"Threads:   {cfg['n_threads']} (ignored: device execution)")
+        print(f"BVH-Nodes: {scene.bvh.n_internal}")
+        print(f"BVH-Depth: {scene.bvh.depth}")
+        print(f"Triangles: {scene.n_triangles}")
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        print(f"Devices:   {dev} ({name})")
+        print()
+
+    if cfg["profile"]:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        tracer = profile(activities=acts)
+    else:
+        tracer = contextlib.nullcontext()
+
+    bar = ProgressBar()
+    with tracer:
+        img, stats = render(
+            scene,
+            cfg["width"],
+            cfg["height"],
+            spp=cfg["samples"],
+            max_bounces=cfg["max_bounces"],
+            seed=cfg["seed"],
+            batch_pixels=cfg["batch_pixels"],
+            method=render_method(cfg),
+            texture_mode=cfg["texture_mode"],
+            progress=bar,
+            rr=cfg["rr"],
+            tonemap=cfg["tonemap"],
+            to_host=False,
+        )
+    bar.finish()
+    if cfg["profile"]:
+        os.makedirs(cfg["profile"], exist_ok=True)
+        tracer.export_chrome_trace(os.path.join(cfg["profile"], "trace.json"))
+
+    # --tonemap is applied on the float radiance inside the render
+    # (renderer._batch_core), matching the reference's hook placement
+    # before clamp+encode (raytracer.c:701), not on quantized u8.
+    print(f"{stats.wall_ms:.0f}ms")
+    if cfg["verbose"]:
+        print(f"{stats.samples_per_sec:.0f} samples/second")
+        print(f"{stats.mrays_per_sec:.2f} Mrays/second "
+              f"({stats.rays_traced} rays traced)")
+
+    if cfg["denoise"]:
+        t0 = time.perf_counter()
+        img = denoise_u8(img)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        print(f"Denoising: {(time.perf_counter() - t0) * 1e3:.0f}ms")
+
+    t0 = time.perf_counter()
+    write_image(cfg["output"], img.cpu().numpy(), warn=print)
+    if cfg["verbose"]:
+        print(f"Output file written in {(time.perf_counter() - t0) * 1e3:.0f}ms")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -299,6 +299,11 @@ class Background:
     def constant(rgb) -> "Background":
         return Background(BG_CONSTANT, torch.tensor(rgb, dtype=torch.float32), -1)
 
+    @staticmethod
+    def equirect(tex_id: int) -> "Background":
+        """The atlas texture `tex_id` as an equirect environment map."""
+        return Background(BG_EQUIRECT, torch.zeros(3, dtype=torch.float32), tex_id)
+
     to = _to
 
 
@@ -425,6 +430,18 @@ def pack_triangles(mesh: HostMesh, slot_map: np.ndarray) -> Triangles:
     )
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device), raising for a CUDA device when there is none:
+    an entry point never carries on on the CPU unless it was asked to."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs CUDA, but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
 def build_scene(
     mesh: HostMesh,
     materials: MaterialTable,
@@ -432,11 +449,13 @@ def build_scene(
     background: Background,
     camera: Camera,
     spheres: Spheres | None = None,
+    device="cuda",
 ) -> Scene:
-    """scene_init (scene.c:416-426): build the BVH and pack the SoA store.
-    The scene lands on the CPU; `scene.to(device)` moves it."""
+    """scene_init (scene.c:416-426): build the BVH and pack the SoA store on
+    the host, then put the scene on `device`."""
     from raytracing_c_tpu_torch.models.bvh import build_bvh
 
+    dev = resolve_device(device)
     bvh, slot_map, _capacity = build_bvh(mesh)
     return Scene(
         triangles=pack_triangles(mesh, slot_map),
@@ -447,7 +466,7 @@ def build_scene(
         background=background,
         camera=camera,
         n_triangles=int(mesh.positions.shape[0]),
-    )
+    ).to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -455,15 +474,17 @@ def build_scene(
 # ---------------------------------------------------------------------------
 
 
-def scene_from_numpy(arrays: dict[str, np.ndarray]) -> Scene:
-    """Build a Scene from the JAX package's Scene arrays, keyed by their
-    dotted field path ("triangles.v0.x", "bvh.nodes", "bvh.depth", ...).
+def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
+    """Build a Scene on `device` from the JAX package's Scene arrays, keyed
+    by their dotted field path ("triangles.v0.x", "bvh.nodes", "bvh.depth", ...).
 
     Static fields (bvh.depth, bvh.last_row_offset, n_triangles,
     background.kind, background.tex_id) come as 0-d arrays. Keys of the
     TPU-only derived tables (ptables, env_light, bvh.nodes_bf16,
     atlas.pages, atlas.tpages, ...) have no field here and are ignored.
     """
+
+    dev = resolve_device(device)
 
     def get(path: str):
         if path not in arrays:
@@ -491,4 +512,4 @@ def scene_from_numpy(arrays: dict[str, np.ndarray]) -> Scene:
         background=build(Background, "background"),
         camera=build(Camera, "camera"),
         n_triangles=int(arrays["n_triangles"]),
-    )
+    ).to(dev)

@@ -14,34 +14,22 @@ fallback from a failed build or launch. Each wrapper counts its launches in
 
 The kernels read the scene's own row tables (`BVH.nodes`,
 `Triangles.leaf_rows`, `Triangles.attr_rows`); the TPU package's compacted,
-split and one-hot tables have no counterpart. The shared library builds
-with nvcc at first use into `raytracing_c_tpu_torch/_build/<source hash>/`.
+split and one-hot tables have no counterpart. The library builds with
+every other kernel of the package at first use (`ops/cuda_build.py`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
+from raytracing_c_tpu_torch.ops import cuda_build
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 INF = float("inf")
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "traverse.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
 #: deepest tree the kernel's stack sizes admit (7 * 16 + 1 = 113 entries)
 MAX_DEPTH = 16
 
@@ -49,39 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot build")
-
-
-def build_library() -> dict:
-    """Compile csrc/traverse.cu unless a build of the same source and flags
-    exists. Returns dict(path, seconds); seconds is 0.0 when the build was
-    already there. Raises on a failed build."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / key / "libtraverse.so"
-    if out.exists():
-        return {"path": out, "seconds": 0.0}
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return {"path": out, "seconds": seconds}
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()["path"]))
+    lib = cuda_build.library("traverse")
     lib.rt_bvh_traverse.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P]
     lib.rt_bvh_traverse.restype = _I
     lib.rt_fetch_attrs.argtypes = [_P, _P, _P, _P, _P, _I, _P]

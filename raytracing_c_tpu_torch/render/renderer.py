@@ -98,14 +98,17 @@ def render(scene, width: int, height: int, spp: int = 16, max_bounces: int = 8,
            seed: int = 0, batch_pixels: int | None = None, method: str = "auto",
            texture_mode: str = "bilinear", limit_batches: int | None = None,
            compact: bool | None = None, rr: bool = False, nee: bool = False,
-           tonemap: str | None = None):
+           tonemap: str | None = None, progress=None, to_host: bool = True):
     """Render a full image on the scene's device.
 
-    Returns (image u8 (H, W, 3) numpy, RenderStats). method="auto" picks the
+    Returns (image u8 (H, W, 3) numpy, RenderStats); with to_host=False the
+    image is the frame buffer itself, a tensor on the scene's device, and
+    the wall time ends when the frame is complete. method="auto" picks the
     brute-force oracle for scenes of <= 64 triangle slots (the reference's
     own `#if 0` path) and the "bvh" traversal kernel otherwise. compact
     (default on) selects the live-lane compacted tracer. limit_batches
     renders only the first batches (the rest of the frame stays black).
+    progress(done, total) is called after each batch is enqueued.
     """
     if nee:
         raise NotImplementedError("nee: env-light sampling is not ported yet")
@@ -146,7 +149,13 @@ def render(scene, width: int, height: int, spp: int = 16, max_bounces: int = 8,
         hi = min(lo + batch_pixels, n_pixels)
         frame[perm_d[lo:hi]] = rgb[: hi - lo]
         rays_per_batch[b] = rays
-    img = frame.cpu().numpy().reshape(height, width, 3)
+        if progress is not None:
+            progress(b + 1, n_batches)
+    img = frame.reshape(height, width, 3)
+    if to_host:
+        img = img.cpu().numpy()
+    # the counters follow the last batch on the stream: reading them waits
+    # for the whole frame
     rays_total = float(rays_per_batch.cpu().numpy().astype(np.float64).sum())
     wall_ms = (time.perf_counter() - t0) * 1e3
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card against their plain PyTorch versions.
+"""The CUDA kernels (K1, K2, K3) on the card against their plain PyTorch
+versions.
 
 Every test here is marked `cuda` and skips where there is no GPU. The file
 imports neither jax nor the JAX package, so it also runs on a machine with
@@ -8,7 +9,8 @@ only PyTorch; tests/conftest.py imports jax, so run it there without it:
 
 Tolerance: none. The kernels are built with --fmad=false and repeat the
 plain versions' operation order, so hits and attribute planes are
-bit-equal to the plain versions run on the same card.
+bit-equal to the plain versions run on the same card; so are K3's u8
+pixels (it sums the luminances in the plain version's order).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from raytracing_c_tpu_torch.models import scene as ps
+from raytracing_c_tpu_torch.ops import denoise as dn
 from raytracing_c_tpu_torch.ops import traverse_cuda as tc
 from raytracing_c_tpu_torch.render.renderer import render
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
@@ -30,7 +33,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _soup_scene(n: int, seed: int) -> ps.Scene:
+def _soup_scene(n: int, seed: int, device) -> ps.Scene:
     """Random triangle soup in [-1, 1]^3 (the shape of tests/helpers.random_mesh)."""
     rng = np.random.default_rng(seed)
     pos = (rng.uniform(-1, 1, (n, 1, 3)) + rng.normal(0, 0.12, (n, 3, 3))).astype(np.float32)
@@ -40,7 +43,8 @@ def _soup_scene(n: int, seed: int) -> ps.Scene:
                        rng.uniform(0, 1, (n, 3, 2)).astype(np.float32),
                        np.zeros(n, np.int32))
     return ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
-                          ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default())
+                          ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default(),
+                          device=device)
 
 
 def _rays(n: int, seed: int, device):
@@ -56,7 +60,7 @@ def _rays(n: int, seed: int, device):
 
 @pytest.mark.parametrize("n_tri,depth", [(900, 3), (15452, 4), (33000, 5)])
 def test_kernels_match_plain(cuda_device, n_tri, depth):
-    ts = _soup_scene(n_tri, 8).to(cuda_device)
+    ts = _soup_scene(n_tri, 8, cuda_device)
     assert ts.bvh.depth == depth
     o, d = _rays(4096, 9, cuda_device)
     tc.reset_launch_counts()
@@ -77,7 +81,7 @@ def test_kernels_match_plain(cuda_device, n_tri, depth):
 
 
 def test_active_and_t_max(cuda_device):
-    ts = _soup_scene(900, 3).to(cuda_device)
+    ts = _soup_scene(900, 3, cuda_device)
     o, d = _rays(2048, 4, cuda_device)
     i = torch.arange(2048, device=cuda_device)
     active = i % 3 != 0
@@ -89,7 +93,7 @@ def test_active_and_t_max(cuda_device):
 
 
 def test_bad_tables_raise(cuda_device):
-    ts = _soup_scene(100, 1).to(cuda_device)
+    ts = _soup_scene(100, 1, cuda_device)
     o, d = _rays(64, 2, cuda_device)
     ts.bvh.nodes = ts.bvh.nodes.double()
     with pytest.raises(ValueError):
@@ -99,7 +103,7 @@ def test_bad_tables_raise(cuda_device):
 def test_render_kernel_path_matches_brute(cuda_device):
     """render() through the kernels equals render() through the brute-force
     oracle, and the main path launched both kernels."""
-    ts = _soup_scene(2000, 6).to(cuda_device)
+    ts = _soup_scene(2000, 6, cuda_device)
     tc.reset_launch_counts()
     img_k, st_k = render(ts, 48, 40, spp=2, max_bounces=4, seed=1, method="bvh")
     counts = tc.launch_counts()
@@ -107,3 +111,35 @@ def test_render_kernel_path_matches_brute(cuda_device):
     assert counts["bvh_traverse"] > 0 and counts["fetch_attrs"] > 0
     np.testing.assert_array_equal(img_k, img_b)
     assert st_k.rays_traced == st_b.rays_traced
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (7, 5), (1, 1)])
+def test_denoise_matches_plain(cuda_device, h, w):
+    rng = np.random.default_rng(h + w)
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    img[rng.random((h, w)) < 0.02] = 255
+    x = torch.from_numpy(img).to(cuda_device)
+    before = dn.denoise_u8.launches
+    got = dn.denoise_u8(x)
+    want = dn.denoise_u8_plain(x)
+    torch.cuda.synchronize()
+    assert dn.denoise_u8.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.uint8 and got.shape == x.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_denoise_removes_a_firefly(cuda_device):
+    img = torch.full((16, 32, 3), 90, dtype=torch.uint8)
+    img[7, 9] = torch.tensor([255, 250, 240], dtype=torch.uint8)
+    got = dn.denoise_u8(img.to(cuda_device)).cpu()
+    assert got[7, 9].tolist() == [90, 90, 90]
+    assert int((got != img).any(-1).sum()) == 1
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (4, 4, 3)), (torch.uint8, (4, 4)),
+                                         (torch.uint8, (4, 4, 4))])
+def test_denoise_bad_input_raises(cuda_device, dtype, shape):
+    before = dn.denoise_u8.launches
+    with pytest.raises(ValueError):
+        dn.denoise_u8(torch.zeros(shape, dtype=dtype, device=cuda_device))
+    assert dn.denoise_u8.launches == before

@@ -141,3 +141,36 @@ def test_wrapper_rejects_other_devices(soup):
     meta = type(meta)(*(t.to("meta") for t in (meta.x, meta.y, meta.z)))
     with pytest.raises(ValueError):
         tc.bvh_traverse(meta, meta, ts.triangles, ts.bvh)
+
+
+def test_k1_walk_finds_the_plain_hits(soup):
+    """utils/bounds.k1_walk, whose visit counts give K1's operation bound,
+    re-walks K1's descent on the host: its nearest t equals the plain
+    version's on every ray (exact), and it visits no more leaves than the
+    tree holds."""
+    from raytracing_c_tpu_torch.utils import bounds
+
+    _, ts, o, d = soup
+    bvh, tris = ts.bvh, ts.triangles
+    visits_n, visits_l, best_t = bounds.k1_walk(bvh.nodes.numpy(), tris.leaf_rows.numpy(),
+                                                bvh.n_internal, o[:256], d[:256])
+    want = tc.bvh_traverse_plain(tvec(o[:256]), tvec(d[:256]), tris)
+    np.testing.assert_array_equal(best_t, want["t"].numpy())
+    assert (visits_n >= 1).all() and visits_l.max() <= tris.leaf_rows.shape[0]
+
+
+def test_k1_work_counts_the_walk(soup):
+    """utils/bounds.k1_work walks every ray when it has fewer than its
+    sample, and its operations follow the walk's visit counts (exact up to
+    float64 rounding)."""
+    from raytracing_c_tpu_torch.utils import bounds
+
+    _, ts, o, d = soup
+    work = bounds.k1_work(ts, tvec(o[:300]), tvec(d[:300]))
+    vn, vl, _ = bounds.k1_walk(ts.bvh.nodes.numpy(), ts.triangles.leaf_rows.numpy(),
+                               ts.bvh.n_internal, o[:300], d[:300])
+    per_ray = (bounds.RAY_SETUP_OPS + vn.mean() * 8 * bounds.BOX_TEST_OPS
+               + vl.mean() * 8 * bounds.TRI_TEST_OPS + bounds.EPILOGUE_OPS)
+    assert work["sample"] == 300
+    assert work["ops"] == pytest.approx(per_ray * 300, rel=1e-12)
+    assert work["node_visits_per_ray"] == pytest.approx(vn.mean(), rel=1e-12)

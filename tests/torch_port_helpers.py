@@ -31,7 +31,38 @@ def jax_scene_arrays(obj, prefix: str = "") -> dict[str, np.ndarray]:
 
 
 def port_scene(jax_scene) -> ps.Scene:
-    return ps.scene_from_numpy(jax_scene_arrays(jax_scene))
+    return ps.scene_from_numpy(jax_scene_arrays(jax_scene), device="cpu")
+
+
+_TRI_FIELDS = ("v0", "e1", "e2", "n0", "n1", "n2", "ng", "tangent", "bitangent")
+
+
+def assert_scene_equal(js, ts):
+    """A JAX Scene and a port Scene hold equal arrays (exact)."""
+    a = jax_scene_arrays(js)
+    np.testing.assert_array_equal(a["bvh.nodes"], ts.bvh.nodes.numpy())
+    assert int(a["bvh.depth"]) == ts.bvh.depth
+    assert int(a["bvh.last_row_offset"]) == ts.bvh.last_row_offset
+    tr = ts.triangles
+    np.testing.assert_array_equal(a["triangles.leaf_rows"], tr.leaf_rows.numpy())
+    np.testing.assert_array_equal(a["triangles.attr_rows"], tr.attr_rows.numpy())
+    np.testing.assert_array_equal(a["triangles.mat_id"], tr.mat_id.numpy())
+    for f in _TRI_FIELDS:
+        for c in "xyz":
+            np.testing.assert_array_equal(
+                a[f"triangles.{f}.{c}"], getattr(getattr(tr, f), c).numpy(), err_msg=f
+            )
+    for f in ("uv0u", "uv0v", "uv1u", "uv1v", "uv2u", "uv2v"):
+        np.testing.assert_array_equal(a[f"triangles.{f}"], getattr(tr, f).numpy())
+    np.testing.assert_array_equal(a["materials.rows"], ts.materials.rows.numpy())
+    for f in ("tex_r", "tex_g", "tex_b", "offset", "width", "height"):
+        np.testing.assert_array_equal(a[f"atlas.{f}"], getattr(ts.atlas, f).numpy())
+    np.testing.assert_array_equal(a["camera.view_matrix"], ts.camera.view_matrix.numpy())
+    np.testing.assert_array_equal(a["camera.focal_length"], ts.camera.focal_length.numpy())
+    np.testing.assert_array_equal(a["background.color"], ts.background.color.numpy())
+    assert int(a["n_triangles"]) == ts.n_triangles
+    assert int(a["background.kind"]) == ts.background.kind
+    assert int(a["background.tex_id"]) == ts.background.tex_id
 
 
 def port_mesh(mesh) -> ps.HostMesh:

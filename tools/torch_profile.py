@@ -5,7 +5,7 @@
 
 Renders the batch holding the image centre of chip_smoke.py's main path
 (1920x1080, 16 spp -> 262,144 camera samples, 8 bounces, the procedural
-helmet stand-in) three ways:
+helmet stand-in) three ways, then counts K1's work on it:
 
 1. plain: wall seconds of the batch, rays traced, Mrays/s;
 2. layers: the same batch with a synchronize around each layer
@@ -13,7 +13,11 @@ helmet stand-in) three ways:
    compaction and the rest), so each layer's time includes its own launch
    overhead; the sum exceeds the plain wall by the lost overlap;
 3. torch.profiler: device time by kernel, and the device busy share of
-   the batch's wall time.
+   the batch's wall time;
+4. K1's work: a host re-walk of K1's ordered descent
+   (`raytracing_c_tpu_torch/utils/bounds.py:k1_work`) on a sample of the
+   batch's camera rays counts the box and triangle tests, and from them
+   K1's operation bound beside its bytes bound.
 
 Prints one JSON object per view; writes the profiler table to
 DIR/torch_profile.txt (default: the current directory).
@@ -39,7 +43,7 @@ def main(argv) -> int:
     import chip_smoke as cs
     from raytracing_c_tpu_torch.models import scene as ps
     from raytracing_c_tpu_torch.render import camera, integrator, renderer
-    from raytracing_c_tpu_torch.utils import rng
+    from raytracing_c_tpu_torch.utils import bounds, rng
 
     if not torch.cuda.is_available():
         print("torch_profile: needs an NVIDIA GPU", file=sys.stderr)
@@ -47,7 +51,7 @@ def main(argv) -> int:
     out_dir = argv[argv.index("--out") + 1] if "--out" in argv else "."
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda", 0)
-    scene = cs.procedural_scene(ps, np, torch).to(dev)
+    scene = cs.procedural_scene(ps, np, torch, dev)
     w, h, spp, bounces = cs.WIDTH, cs.HEIGHT, cs.SPP, cs.BOUNCES
     spp_px = cs.BATCH_RAYS // spp
     n_batches = math.ceil(w * h / spp_px)
@@ -145,6 +149,14 @@ def main(argv) -> int:
                       "top_kernels_s": [[k[:80], v / 1e6] for k, v in top]}))
     with open(os.path.join(out_dir, "torch_profile.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+
+    # K1's work on the batch's camera rays (fused epilogue, as on bounce 0)
+    kb = rng.fold_in(rng.prng_key(0, dev), b)
+    jitter, _ = renderer._draw_uniforms(kb, cs.BATCH_RAYS, bounces, skip_mat=True)
+    o, d = camera.generate_rays(scene.camera, w, h, px.repeat_interleave(spp),
+                                py.repeat_interleave(spp), jitter[0], jitter[1])
+    work = bounds.k1_work(scene, o, d)
+    print(json.dumps({"view": "k1_work", **work, **bounds.bound(work)}))
     return 0
 
 
