@@ -5,20 +5,29 @@
 
 Phases, one line each or more; any failure exits 1 and prints no result:
 
-1. the card (nvidia-smi name and power limit) and the one nvcc build of
-   every kernel (csrc/*.cu);
+1. the card (nvidia-smi name and power limit), the one nvcc build of
+   every kernel (csrc/*.cu), the scenes and K1's node and triangle tables
+   (built with each scene; their build time);
 2. K1 `bvh_traverse` against its plain version (the chunked brute-force
-   oracle) at the main path's batch of 262,144 rays: camera rays and
-   random rays on the procedural scene, random rays on a random soup of
-   the same size. tri identical; t, u, v and the fused attribute planes
-   within K_TOL (expected 0: both round alike, nvcc --fmad=false);
-   dropped_min all +inf;
+   oracle) on five ray sets of the main path's batch size: camera rays
+   and random rays on the procedural scene, camera and random rays on a
+   random soup of the same size, and bounce1/procedural, the live rays
+   entering bounce 1 of the image-centre batch (trace_bucketed's own
+   compacted state), all run by its one-thread-per-ray kernel; and on the
+   live rays entering bounces 2-7 of that batch (bounceN/procedural),
+   fewer than WIDE_BELOW, run by its eight-lanes-per-ray kernel. With
+   and without the fused epilogue: tri identical; t, u, v and the fused
+   attribute planes within K_TOL
+   (expected 0: both round alike, nvcc --fmad=false); dropped_min all
+   +inf. Each set is timed as the main path runs it (fused epilogue on
+   camera rays); the camera, bounce-1 and bounce-2 sets get their bounds
+   from a host re-walk;
 3. K2 `fetch_attrs` against its plain version on the same hits;
 4. the render path: render() at 1920x1080, 16 spp, 8 bounces, method
    "auto", on a procedural stand-in for helmet.glb (15,490 triangles in a
    depth-4 BVH, 3 materials, 2048^2 albedo + normal + metal-roughness
    textures, constant sky). The launch counters are zeroed just before
-   and read just after; K1 and K2 must have run. Prints wall seconds,
+   and read just after; both K1 kernels and K2 must have run. Prints wall seconds,
    rays traced and Mrays/s, or the spp cut if the time budget forced one;
 5. a 128x128, 4 spp render through the kernels against method="brute":
    PSNR >= 45 dB;
@@ -30,7 +39,7 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    rotation/translation, a perspective camera node) and a 2048x1024
    equirect `background.png`, then cli.main() in-process at 1920x1080,
    16 spp (phase 4's cut, if any), 8 bounces, -D; the counters are zeroed
-   just before and read just after: K1, K2 and K3 must have run, the
+   just before and read just after: both K1 kernels, K2 and K3 must have run, the
    output must decode to a textured frame whose sky carries the env map.
    Before it, the host's time to decode the GLB's 2048^2 albedo texture and
    background.png (PNGs filtered per row like a real encoder's); after it,
@@ -45,6 +54,10 @@ L2, so that it reads its inputs from device memory as its bytes bound
 assumes. The kernels line reports `device_ms` as `ms`, beside its bound
 (raytracing_c_tpu_torch/utils/bounds.py).
 
+The kernels line lists K1 twice: bvh_traverse (one thread per ray) with
+the camera batch's numbers and, beside them, bounce1_rays, bounce1_ms,
+bounce1_bound_ms and bounce1_bound_by; bvh_traverse_wide (eight lanes per
+ray) with bounce 2's, and later_ms: [set, rays, ms] for bounces 3-7.
 The second-to-last line is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository,
 it exits 2 before printing anything but the reason.
@@ -201,13 +214,13 @@ def standin_parts(np, n=88, tex=2048):
     return arrays, _textures(rng, np, tex, tex // 2), view
 
 
-def procedural_scene(ps, np, torch, device):
+def procedural_scene(ps, np, torch, device, n=88, tex=2048):
     """The helmet.glb stand-in as a port scene on `device`: displaced
-    sphere (15,488 triangles) on a floor quad, 3 materials, textured PBR,
-    constant sky."""
+    sphere (2 n^2 = 15,488 triangles) on a floor quad, 3 materials,
+    textured PBR, constant sky."""
     from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
-    (pos, nrm, uv, mat), textures, view = standin_parts(np)
+    (pos, nrm, uv, mat), textures, view = standin_parts(np, n, tex)
     mats = STANDIN_MATERIALS
     f = lambda k: torch.tensor([m[k] for m in mats], dtype=torch.float32)  # noqa: E731
     i = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
@@ -238,6 +251,47 @@ def soup_scene(ps, np, device, n=15452):
     return ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
                           ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default(),
                           device=device)
+
+
+def far_soup(ps, np, device, n=900, offset=1.0e4, inside=2e-4, rise=0.05):
+    """A random soup of n triangles (soup_scene's shape) moved by `offset`
+    along each axis, and rays that graze its leaf blocks' boxes: for each
+    block, its least and greatest vertex in x and in y, a ray from `rise`
+    below that vertex (in z) to the point of the vertex's triangle
+    `inside` within that face. At 1e4 a box face lies on its extreme
+    vertex (the EPSILON padding rounds away), so a slab test whose
+    rounding grows with |o| (2^-24 |o| = 6e-4 here) loses some of these
+    hits; one whose rounding grows with the distance from the origin to
+    the box loses none. Returns (scene, origins, directions), the rays as
+    (m, 3) float32 numpy."""
+    from raytracing_c_tpu_torch.models.bvh import build_bvh
+
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(-1, 1, (n, 1, 3)) + rng.normal(0, 0.12, (n, 3, 3))
+    pos = (pos + offset).astype(np.float32)
+    ng = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
+    ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+    mesh = ps.HostMesh(pos, np.repeat(ng[:, None], 3, 1).astype(np.float32),
+                       rng.uniform(0, 1, (n, 3, 2)).astype(np.float32), np.zeros(n, np.int32))
+    _, slot_map, _ = build_bvh(mesh)
+    origins, directions = [], []
+    for block in slot_map.reshape(-1, 8):
+        tris = pos[block[block >= 0]]
+        for axis in (0, 1) if len(tris) else ():
+            for pick in (np.argmin, np.argmax):
+                tri, corner = divmod(int(pick(tris[:, :, axis])), 3)
+                v = tris[tri, corner].astype(np.float64)
+                c = tris[tri].astype(np.float64).mean(0)
+                s = min(inside / max(abs(c[axis] - v[axis]), 1e-9), 0.5)
+                o = tris[tri, corner].copy()
+                o[2] = np.float32(v[2] - rise)
+                d = v + s * (c - v) - o
+                origins.append(o)
+                directions.append(d / np.linalg.norm(d))
+    scene = ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
+                           ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default(),
+                           device=device)
+    return scene, np.array(origins, np.float32), np.array(directions, np.float32)
 
 
 #: the GLB mesh node's local transform (under a root node translated by
@@ -463,6 +517,64 @@ def random_rays(n, seed, dev, np, torch, Vec3):
     return Vec3(t(o[:, 0]), t(o[:, 1]), t(o[:, 2])), Vec3(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
 
 
+def bounce_rays(integrator, scene, origin, direction, key, bounces):
+    """integrator.trace_bucketed on camera rays, keeping the rays that
+    enter each bounce: its own compacted state as bounce_step receives it.
+    Returns (radiance, rays traced, [(origin, direction) per bounce])."""
+    states = []
+    step = integrator.bounce_step
+
+    def keep(scene_, st, *a, **k):
+        states.append((st["origin"], st["direction"]))
+        return step(scene_, st, *a, **k)
+
+    integrator.bounce_step = keep
+    try:
+        rad, rays = integrator.trace_bucketed(scene, origin, direction, key, bounces)
+    finally:
+        integrator.bounce_step = step
+    return rad, rays, states
+
+
+def k1_ray_sets(scene_d, soup_d, dev):
+    """Phase 2's K1 ray sets from the render's batch that holds the image
+    centre (its first tiles are sky): (label, scene, origin, direction,
+    fused as the main path runs it) for camera and random rays on the
+    procedural scene and on the soup, each of the main path's batch size,
+    then the live rays entering bounce 1 of that batch, then those entering
+    bounces 2-7. Returns (sets, (radiance, rays traced) of the batch's
+    trace)."""
+    import numpy as np
+    import torch
+
+    from raytracing_c_tpu_torch.render import camera, integrator, renderer
+    from raytracing_c_tpu_torch.utils import rng
+    from raytracing_c_tpu_torch.utils.vec3 import Vec3
+
+    spp_px = BATCH_RAYS // SPP
+    n_batches = math.ceil(WIDTH * HEIGHT / spp_px)
+    xs, ys, _ = renderer._pixel_tables(WIDTH, HEIGHT, n_batches * spp_px - WIDTH * HEIGHT)
+    b_mid = int(np.flatnonzero((xs == WIDTH // 2) & (ys == HEIGHT // 2))[0]) // spp_px
+    kb = rng.fold_in(rng.prng_key(0, dev), b_mid)
+    jitter, _ = renderer._draw_uniforms(kb, BATCH_RAYS, BOUNCES, skip_mat=True)
+    sl = slice(b_mid * spp_px, (b_mid + 1) * spp_px)
+    px = torch.from_numpy(xs[sl]).to(dev).repeat_interleave(SPP)
+    py = torch.from_numpy(ys[sl]).to(dev).repeat_interleave(SPP)
+    cam_o, cam_d = camera.generate_rays(scene_d.camera, WIDTH, HEIGHT, px, py,
+                                        jitter[0], jitter[1])
+    soup_o, soup_dir = camera.generate_rays(soup_d.camera, WIDTH, HEIGHT, px, py,
+                                            jitter[0], jitter[1])
+    ro, rd = random_rays(BATCH_RAYS, 2, dev, np, torch, Vec3)
+    rad, rays, states = bounce_rays(integrator, scene_d, cam_o, cam_d, rng.fold_in(kb, 1),
+                                    BOUNCES)
+    later = [(f"bounce{b}/procedural", scene_d, *states[b], False)
+             for b in range(1, len(states))]
+    return [("camera/procedural", scene_d, cam_o, cam_d, True),
+            ("random/procedural", scene_d, ro, rd, False),
+            ("camera/soup", soup_d, soup_o, soup_dir, True),
+            ("random/soup", soup_d, ro, rd, True), *later], (rad, rays)
+
+
 # ---------------------------------------------------------------------------
 # Measurement helpers
 # ---------------------------------------------------------------------------
@@ -489,26 +601,32 @@ def device_ms(torch, fn, reps: int, kernel: str) -> float:
     warm-up call: the kernel's own time, whatever the host's launch rate.
     Before each call a read of L2_FLUSH_BYTES evicts the previous call's
     inputs and outputs from L2. The profiler must see every launch, or all
-    but one."""
+    but one: a window where it saw fewer is measured again, up to twice,
+    and then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.sum()
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
-        if kernel in e.key and e.device_type.name == "CUDA" and t > 0:
-            us += t
-            n += e.count
-    if not reps - 1 <= n <= reps:
-        raise RuntimeError(f"profiler saw {n} launches of {kernel}, expected {reps}")
-    return us / n / 1e3
+    for _window in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total",
+                                                                     0.0)
+            if kernel in e.key and e.device_type.name == "CUDA" and t > 0:
+                us += t
+                n += e.count
+        if reps - 1 <= n <= reps:
+            return us / n / 1e3
+        print(f"device_ms: profiler saw {n} of {reps} launches of {kernel}; measuring again",
+              flush=True)
+    raise RuntimeError(f"profiler saw {n} launches of {kernel} in each of 3 windows, "
+                       f"expected {reps}")
 
 
 def psnr(np, a, b) -> float:
@@ -521,21 +639,28 @@ def psnr(np, a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
-def compare_k1(torch, tc, label, scene, o, d, fuse):
-    got = tc.bvh_traverse(o, d, scene.triangles, scene.bvh, fuse_attr=fuse)
-    want = tc.bvh_traverse_plain(o, d, scene.triangles, fuse_attr=fuse)
+def compare_k1(torch, tc, label, scene, o, d, fuse, need_hits=True):
+    """K1 with its epilogue and without it against the oracle on these
+    rays (tri, t, u, v, and the epilogue's attrs), then timed as the main
+    path runs it: fused on camera rays, bare on secondary ones. With
+    need_hits, a tenth of the rays must hit."""
+    got = tc.bvh_traverse(o, d, scene.triangles, scene.bvh, fuse_attr=True)
+    bare = tc.bvh_traverse(o, d, scene.triangles, scene.bvh, fuse_attr=False)
+    want = tc.bvh_traverse_plain(o, d, scene.triangles, fuse_attr=True)
     torch.cuda.synchronize()
-    bad_tri = int((got["tri"] != want["tri"]).sum())
+    bad_tri = int((got["tri"] != want["tri"]).sum() + (bare["tri"] != want["tri"]).sum())
     hit = want["tri"] >= 0
-    errs = [float((got[k] - want[k])[hit].abs().max()) if bool(hit.any()) else 0.0
-            for k in ("t", "u", "v")]
-    if fuse and bool(hit.any()):
+    errs = [float((g[k] - want[k])[hit].abs().max()) if bool(hit.any()) else 0.0
+            for g in (got, bare) for k in ("t", "u", "v")]
+    if bool(hit.any()):
         errs.append(float((got["attrs"] - want["attrs"])[:, hit].abs().max()))
     err = max(errs)
-    miss_ok = bool(torch.isinf(got["t"][~hit]).all())
-    dropped_inf = bool(torch.isinf(got["dropped_min"]).all())
+    miss_ok = bool(torch.isinf(got["t"][~hit]).all() & torch.isinf(bare["t"][~hit]).all())
+    dropped_inf = bool(torch.isinf(got["dropped_min"]).all()
+                       & torch.isinf(bare["dropped_min"]).all())
     hit_rate = float(hit.float().mean())
-    ok = bad_tri == 0 and err <= K_TOL and miss_ok and dropped_inf and hit_rate > 0.1
+    ok = (bad_tri == 0 and err <= K_TOL and miss_ok and dropped_inf
+          and (hit_rate > 0.1 or not need_hits))
     launch = lambda: tc.bvh_traverse(o, d, scene.triangles, scene.bvh,  # noqa: E731
                                      fuse_attr=fuse)
     ms = cuda_ms(torch, launch, 20)
@@ -581,9 +706,8 @@ def main(argv) -> int:
         from raytracing_c_tpu_torch.ops import cuda_build
         from raytracing_c_tpu_torch.ops import denoise as dn
         from raytracing_c_tpu_torch.ops import traverse_cuda as tc
-        from raytracing_c_tpu_torch.render import camera, integrator, renderer
-        from raytracing_c_tpu_torch.utils import bounds, rng
-        from raytracing_c_tpu_torch.utils.vec3 import Vec3
+        from raytracing_c_tpu_torch.render import renderer
+        from raytracing_c_tpu_torch.utils import bounds
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
@@ -614,45 +738,47 @@ def main(argv) -> int:
     print(f"phase1 scenes: procedural {scene_d.n_triangles} triangles depth "
           f"{scene_d.bvh.depth}; soup {soup_d.n_triangles} triangles depth "
           f"{soup_d.bvh.depth}; build {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, sc in (("procedural", scene_d), ("soup", soup_d)):
+        tab = tc.k1_tables(sc.bvh, sc.triangles)  # built by build_scene
+        print(f"phase1 K1 tables {label}: nodes {tab.nodes.numel() * 4} B, triangles "
+              f"{tab.tris.numel() * 4} B ({tab.tris.shape[0] // 3} occupied slots of "
+              f"{sc.triangles.capacity}), built in {tab.seconds * 1e3:.2f} ms", flush=True)
 
     # --- phase 2: K1 against its plain version at the main path's batch ---
-    # the render's batch that holds the image centre (its first tiles are sky)
     spp_px = BATCH_RAYS // SPP
     n_batches = math.ceil(WIDTH * HEIGHT / spp_px)
-    xs, ys, _ = renderer._pixel_tables(WIDTH, HEIGHT, n_batches * spp_px - WIDTH * HEIGHT)
-    b_mid = int(np.flatnonzero((xs == WIDTH // 2) & (ys == HEIGHT // 2))[0]) // spp_px
-    kb = rng.fold_in(rng.prng_key(0, dev), b_mid)
-    jitter, _ = renderer._draw_uniforms(kb, BATCH_RAYS, BOUNCES, skip_mat=True)
-    sl = slice(b_mid * spp_px, (b_mid + 1) * spp_px)
-    px = torch.from_numpy(xs[sl]).to(dev).repeat_interleave(SPP)
-    py = torch.from_numpy(ys[sl]).to(dev).repeat_interleave(SPP)
-    cam_o, cam_d = camera.generate_rays(scene_d.camera, WIDTH, HEIGHT, px, py,
-                                        jitter[0], jitter[1])
-    soup_o, soup_d_ = camera.generate_rays(soup_d.camera, WIDTH, HEIGHT, px, py,
-                                           jitter[0], jitter[1])
-    ro, rd = random_rays(BATCH_RAYS, 2, dev, np, torch, Vec3)
-    k1_err = 0.0
+    sets, (rad, rays) = k1_ray_sets(scene_d, soup_d, dev)
+    cam_o, cam_d = sets[0][2:4]
+    b1_o, b1_d = sets[4][2:4]
+    b2_o, b2_d = sets[5][2:4]
+    k1_err = {"bvh_traverse": 0.0, "bvh_traverse_wide": 0.0}
     runs = {}
-    for label, sc, o, d, fuse in (
-        ("camera/procedural", scene_d, cam_o, cam_d, True),
-        ("random/procedural", scene_d, ro, rd, False),
-        ("camera/soup", soup_d, soup_o, soup_d_, True),
-        ("random/soup", soup_d, ro, rd, True),
-    ):
-        ok, err, ms, plain_ms, got = compare_k1(torch, tc, label, sc, o, d, fuse)
-        runs[label] = (ms, plain_ms, got)
-        k1_err = max(k1_err, err)
+    for n, (label, sc, o, d, fuse) in enumerate(sets):
+        kernel = "bvh_traverse_wide" if o.shape[0] < tc.WIDE_BELOW else "bvh_traverse"
+        ok, err, ms, plain_ms, got = compare_k1(torch, tc, label, sc, o, d, fuse,
+                                                need_hits=n < 5)
+        runs[label] = (ms, plain_ms, got, o.shape[0])
+        k1_err[kernel] = max(k1_err[kernel], err)
         if not ok:
             failures.append(f"K1 {label}")
-    k1_ms, k1_plain_ms, cam_hit = runs["camera/procedural"]
-    t0 = time.perf_counter()
-    work = bounds.k1_work(scene_d, cam_o, cam_d)
-    k1_bound = bounds.bound(work)
-    print(f"phase2 K1 bound camera/procedural: host re-walk of {work['sample']} rays "
-          f"({time.perf_counter() - t0:.1f} s): {work['node_visits_per_ray']:.2f} node and "
-          f"{work['leaf_visits_per_ray']:.2f} leaf visits per ray; bytes {work['bytes']:.4g} "
-          f"ops {work['ops']:.4g} -> bound_ms={k1_bound['bound_ms']:.4f} "
-          f"({k1_bound['bound_by']}), share {k1_bound['bound_ms'] / k1_ms:.3f}", flush=True)
+    if sets[4][2].shape[0] < tc.WIDE_BELOW or b2_o.shape[0] >= tc.WIDE_BELOW:
+        failures.append("K1: bounce 1 not on one thread per ray, or bounce 2 not wide")
+    k1_ms, k1_plain_ms, cam_hit, _ = runs["camera/procedural"]
+    k1_bounds = {}
+    for label, o, d, fuse in (("camera/procedural", cam_o, cam_d, True),
+                              ("bounce1/procedural", b1_o, b1_d, False),
+                              ("bounce2/procedural", b2_o, b2_d, False)):
+        t0 = time.perf_counter()
+        work = bounds.k1_work(scene_d, o, d, epilogue=fuse)
+        k1_bounds[label] = b = bounds.bound(work)
+        print(f"phase2 K1 bound {label}: host re-walk of {work['sample']} of {o.shape[0]} "
+              f"rays ({time.perf_counter() - t0:.1f} s): {work['node_visits_per_ray']:.2f} "
+              f"node visits, {work['box_tests_per_ray']:.2f} box tests, "
+              f"{work['leaf_visits_per_ray']:.2f} leaf visits, {work['tri_tests_per_ray']:.2f} "
+              f"triangle tests ({work['tri_ops_per_ray']:.1f} operations) per ray; "
+              f"epilogue={fuse} bytes {work['bytes']:.4g} ops {work['ops']:.4g} -> bound_ms={b['bound_ms']:.4f} ({b['bound_by']}), share "
+              f"{b['bound_ms'] / runs[label][0]:.3f}", flush=True)
+    k1_bound = k1_bounds["camera/procedural"]
 
     # --- phase 3: K2 against its plain version on the camera hits ---
     attr_rows = scene_d.triangles.attr_rows
@@ -675,7 +801,6 @@ def main(argv) -> int:
         failures.append("K2")
 
     # --- phase 4: the render path through render() ---
-    rad, rays = integrator.trace_bucketed(scene_d, cam_o, cam_d, rng.fold_in(kb, 1), BOUNCES)
     finite = bool(torch.isfinite(rad.x).all() & torch.isfinite(rad.y).all()
                   & torch.isfinite(rad.z).all())
     print(f"phase4 one batch: {BATCH_RAYS} camera samples -> {int(rays)} rays, "
@@ -695,9 +820,9 @@ def main(argv) -> int:
                               seed=0, method="auto")
     launches4 = counts()
     distinct = len(np.unique(img.reshape(-1, 3), axis=0))
-    main_ok = (launches4["bvh_traverse"] > 0 and launches4["fetch_attrs"] > 0
-               and img.shape == (HEIGHT, WIDTH, 3) and float(img.std()) > 5.0
-               and distinct > 1000)
+    main_ok = (launches4["bvh_traverse"] > 0 and launches4["bvh_traverse_wide"] > 0
+               and launches4["fetch_attrs"] > 0 and img.shape == (HEIGHT, WIDTH, 3)
+               and float(img.std()) > 5.0 and distinct > 1000)
     print(f"phase4 render {WIDTH}x{HEIGHT} spp={spp} bounces={BOUNCES}: "
           f"wall_s={st.wall_ms / 1e3:.3f} rays={st.rays_traced} "
           f"mrays_per_s={st.mrays_per_sec:.4f} batches={st.batches} "
@@ -829,9 +954,18 @@ def main(argv) -> int:
                 "library_ms": None}
 
     src = "raytracing_c_tpu_torch/csrc/traverse.cu"
+    k1_pallas = "raytracing_c_tpu/ops/traverse_pallas.py:1391"
+    b1 = k1_bounds["bounce1/procedural"]
+    b2_ms, b2_plain_ms = runs["bounce2/procedural"][:2]
     kernels = [
-        entry("bvh_traverse", src, "raytracing_c_tpu/ops/traverse_pallas.py:1391",
-              k1_err, k1_ms, k1_plain_ms, k1_bound),
+        {**entry("bvh_traverse", src, k1_pallas, k1_err["bvh_traverse"], k1_ms, k1_plain_ms,
+                 k1_bound),
+         "bounce1_rays": int(b1_o.shape[0]), "bounce1_ms": runs["bounce1/procedural"][0],
+         "bounce1_bound_ms": b1["bound_ms"], "bounce1_bound_by": b1["bound_by"]},
+        {**entry("bvh_traverse_wide", src, k1_pallas, k1_err["bvh_traverse_wide"], b2_ms,
+                 b2_plain_ms, k1_bounds["bounce2/procedural"]),
+         "rays": int(b2_o.shape[0]),
+         "later_ms": [[label, runs[label][3], runs[label][0]] for label, *_ in sets[6:]]},
         entry("fetch_attrs", src, "raytracing_c_tpu/ops/traverse_pallas.py:1646",
               k2_err, k2_ms, k2_plain_ms, k2_bound),
         entry("denoise_u8", "raytracing_c_tpu_torch/csrc/denoise.cu",

@@ -13,8 +13,10 @@ package's, so its arrays carry across unchanged (`scene_from_numpy`):
 - textures are three flat u8 planes with per-texture offset and size.
 
 The TPU-only derived tables of the JAX scene (Pallas tables, bf16 node
-twin, texture pages) have no counterpart: the CUDA kernels read the rows
-above directly.
+twin, texture pages) have no counterpart. On a GPU, `build_scene` and
+`scene_from_numpy` also build the traversal kernel's own node and triangle
+tables from the rows above (`ops/traverse_cuda.py:k1_tables`, cached on the
+BVH), so that the load, not the first render batch, pays for them.
 """
 
 from __future__ import annotations
@@ -457,7 +459,7 @@ def build_scene(
 
     dev = resolve_device(device)
     bvh, slot_map, _capacity = build_bvh(mesh)
-    return Scene(
+    return _with_k1_tables(Scene(
         triangles=pack_triangles(mesh, slot_map),
         bvh=bvh,
         materials=materials,
@@ -466,7 +468,17 @@ def build_scene(
         background=background,
         camera=camera,
         n_triangles=int(mesh.positions.shape[0]),
-    ).to(dev)
+    ).to(dev))
+
+
+def _with_k1_tables(scene: Scene) -> Scene:
+    """Build the traversal kernel's tables of a scene on a GPU (cached on
+    its BVH); a CPU scene runs the kernels' plain versions, which need none."""
+    if scene.device.type == "cuda":
+        from raytracing_c_tpu_torch.ops.traverse_cuda import k1_tables
+
+        k1_tables(scene.bvh, scene.triangles)
+    return scene
 
 
 # ---------------------------------------------------------------------------
@@ -503,7 +515,7 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
                 kw[f.name] = get(path)
         return cls(**kw)
 
-    return Scene(
+    return _with_k1_tables(Scene(
         triangles=build(Triangles, "triangles"),
         bvh=build(BVH, "bvh"),
         materials=build(MaterialTable, "materials"),
@@ -512,4 +524,4 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
         background=build(Background, "background"),
         camera=build(Camera, "camera"),
         n_triangles=int(arrays["n_triangles"]),
-    ).to(dev)
+    ).to(dev))

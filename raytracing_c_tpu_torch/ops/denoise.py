@@ -15,7 +15,9 @@ image (u8 -> f32 / 255.999 -> u8).
 
 `denoise_u8` given a CPU tensor runs `denoise_u8_plain`; given a CUDA
 tensor it launches K3 or raises. It counts its launches in
-`denoise_u8.launches`.
+`denoise_u8.launches`. K3 selects the median with the compare-exchange
+network `MEDIAN9_NETWORK` on the keys (luminance key << 4 | index),
+which picks the plain version's stable-sort median exactly.
 """
 
 from __future__ import annotations
@@ -30,6 +32,16 @@ from raytracing_c_tpu_torch.utils.color import LUMA
 
 DENOISING_THRESHOLD = 0.0125  # denoiser.c:9
 NEIGHBOURHOOD_WEIGHT = 5.0  # denoiser.c:10
+
+#: K3's median-of-9 network (Devillard's opt_med9): 19 compare-exchanges,
+#: (a, b) leaves the smaller key at a; position 4 ends as the median
+MEDIAN9_NETWORK = ((1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2), (4, 5),
+                   (7, 8), (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7),
+                   (4, 2), (6, 4), (4, 2))
+#: K3's key of a luminance is max(float32 bits - KEY_BASE, 0): every
+#: luminance of a u8 pixel is 0 or in [2**-13, 1), where the bits rise with
+#: the value, so the key keeps the order in 27 bits
+KEY_BASE = 0x39000000 - 1
 
 
 def _div(a: torch.Tensor, c: float) -> torch.Tensor:

@@ -8,29 +8,47 @@ here, from the inputs of their own run.
 
 Rates: one H100 SXM at its 700 W limit (NVIDIA's data sheet). Its 67
 TFLOP/s of float32 outside the tensor cores counts a fused multiply-add as
-two operations. The kernels are built with --fmad=false, so that they round
-like their plain PyTorch versions, and every add, multiply, compare and
-select issues as one instruction: their rate is half of it.
+two operations. Every instruction here (add, multiply, fused multiply-add,
+compare, min, max, select, integer op) counts as one at half of that rate,
+one per lane per clock: the kernels build with --fmad=false, so that they
+round like their plain PyTorch versions, and fuse only where no output
+depends on the rounding. The card issues compares, min/max and integer
+operations at half that rate and conversions at an eighth, so the bound
+is a floor, never reached.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from raytracing_c_tpu_torch import EPSILON
+from raytracing_c_tpu_torch.ops.traverse_cuda import occupancy
 
 HBM_BYTES_PER_S = 3.35e12
 F32_INSTR_PER_S = 67e12 / 2
 
-#: K1, one child-box slab test: 3 axes x (2 sub, 2 mul, min, max, max,
-#: min), the entry/exit clamps and the 2 compares
-BOX_TEST_OPS = 28
-#: K1, one Moller-Trumbore test (2 crosses of 9, 4 dots of 5, 1 reciprocal,
-#: 3 subs, 3 scalings, 6 compares and 1 add)
-TRI_TEST_OPS = 52
-#: K1, per ray outside the walk: 3 reciprocals, and the fused epilogue's
-#: interpolation (2 + 5 x 5)
-RAY_SETUP_OPS = 3
+#: K1, one box test of an occupied child at the least instruction count:
+#: per axis, with the box as center c and half-extent h and -o * inv
+#: taken once per ray, tc = c * inv - o * inv and the entry and exit tc -+
+#: h |inv| (3 fused multiply-adds) folded into the running entry max and
+#: exit min (2), then entry < exit and entry <= best t (2); the entry and
+#: exit start at EPSILON and t_max. (csrc/traverse.cu spends one more
+#: instruction per axis, (c - o) * inv, so that the slab's rounding stays
+#: relative to the origin's distance to the box: 20.)
+BOX_TEST_OPS = 17
+#: K1, one Moller-Trumbore test of an occupied slot, unfused as the
+#: output's rounding requires, at the cost of the step where it leaves:
+#: u outside [-EPSILON, 1 + EPSILON] after the cross p (9), det (5), its
+#: reciprocal (1), o - v0 (3), u (5 + 1) and 2 compares; v or u + v
+#: outside after the cross q (9), v (5 + 1), u + v (1) and 2 compares;
+#: else t (5 + 1) and 2 compares (t >= EPSILON, and against the best hit)
+TRI_U_FAIL_OPS = 26
+TRI_V_FAIL_OPS = TRI_U_FAIL_OPS + 18
+TRI_TEST_OPS = TRI_V_FAIL_OPS + 8
+#: K1, per ray outside the walk: 3 reciprocals and -o * inv (3); the fused
+#: epilogue's interpolation (2 + 5 x 5)
+RAY_SETUP_OPS = 6
 EPILOGUE_OPS = 27
 #: K1's operations per launch come from a re-walk of this many of its rays
 K1_SAMPLE = 2048
@@ -38,14 +56,15 @@ K1_SAMPLE = 2048
 #: K2: w = 1 - u - v (2) and 5 interpolations of 3 products and 2 sums
 K2_OPS_PER_RAY = 27
 
-#: K3, the least operations per pixel of its function, each input pixel's
-#: luminance shared by its 9 neighbours: 3 conversions, 3 scalings and the
-#: luminance (5) of the pixel; the 9-sum in neighbourhood order (8); min
-#: and max of 9 (16); the mean (3); a median-of-9 selection network of 19
-#: compare-exchanges on (luminance, index) keys, which picks the stable
-#: sort's median, each a 3-instruction lexicographic compare and 4 selects
-#: (133); the blend factor (9), the blend (10) and the encode (6)
-K3_OPS_PER_PIXEL = 11 + 8 + 16 + 3 + 19 * 7 + 25
+#: K3, operations per pixel of the shared-memory design (csrc/denoise.cu),
+#: each input pixel's work shared by its 9 neighbours: 3 conversions, 3
+#: scalings, the luminance (5) and its sort key (3) of the pixel; per
+#: output pixel the 9 keys' neighbour index (9), the 9-sum in neighbourhood
+#: order (8), the minimum and maximum from the new window row's (4) and the
+#: three rows' (4), the mean (3), the 19-compare-exchange median-of-9
+#: network on (luminance, index) keys packed in 32 bits, a min and a max
+#: each (38), the blend factor (9), the blend (10) and the encode (6)
+K3_OPS_PER_PIXEL = 14 + 9 + 8 + 8 + 3 + 19 * 2 + 25
 
 
 def bound(work: dict) -> dict:
@@ -58,20 +77,29 @@ def bound(work: dict) -> dict:
             "bytes_ms": bytes_ms, "ops_ms": ops_ms}
 
 
-def k1_walk(nodes, leaf_rows, n_internal: int, origins, directions):
-    """Re-walk K1's ordered nearest-first descent (csrc/traverse.cu) on the
-    host in float32 for each ray of (n, 3) numpy origins/directions, with
-    the kernel's pruning (an entry strictly farther than the best hit is
-    skipped) and its child order. Returns (internal node visits, leaf
-    block visits, best t) per ray, each (n,)."""
+def k1_walk(nodes, leaf_rows, n_internal: int, origins, directions) -> dict:
+    """Re-walk the ordered nearest-first descent (the work of csrc/
+    traverse.cu's K1, and of any exact traversal of this tree in that
+    order) on the host in float32 for each ray of (n, 3) numpy
+    origins/directions: children sorted by entry distance (ties to the
+    lower child), an entry strictly farther than the best hit pruned,
+    empty children and slots (`traverse_cuda.occupancy`) never tested.
+    Returns per ray, each (n,): node_visits, leaf_visits, box_tests (the
+    occupied children of the visited nodes), tri_tests (the occupied slots
+    of the visited leaf blocks), tri_ops (those tests' operations, each at
+    the cost of the step where it leaves: TRI_U_FAIL_OPS, TRI_V_FAIL_OPS
+    or TRI_TEST_OPS) and t (the nearest hit)."""
     f32 = np.float32
     eps = f32(EPSILON)
     one_eps = f32(1.0 + EPSILON)
     nodes = np.asarray(nodes, f32)
     leaf_rows = np.asarray(leaf_rows, f32)
+    depth = int(round(np.log(leaf_rows.shape[0]) / np.log(8)))
+    slot_occ, child_occ = (a.numpy() for a in occupancy(torch.from_numpy(leaf_rows),
+                                                         n_internal, depth))
     n = len(origins)
-    visits_n = np.zeros(n, np.int64)
-    visits_l = np.zeros(n, np.int64)
+    out = {k: np.zeros(n, np.int64) for k in ("node_visits", "leaf_visits", "box_tests",
+                                                 "tri_tests", "tri_ops")}
     best_t = np.full(n, np.inf, f32)
     with np.errstate(all="ignore"):
         for i in range(n):
@@ -85,7 +113,9 @@ def k1_walk(nodes, leaf_rows, n_internal: int, origins, directions):
                 if dist > best:
                     continue
                 if e < n_internal:
-                    visits_n[i] += 1
+                    occ = child_occ[e]
+                    out["node_visits"][i] += 1
+                    out["box_tests"][i] += occ.sum()
                     row = nodes[e]
                     t0 = (row[0:24].reshape(3, 8) - o[:, None]) * inv[:, None]
                     t1 = (row[24:48].reshape(3, 8) - o[:, None]) * inv[:, None]
@@ -93,13 +123,16 @@ def k1_walk(nodes, leaf_rows, n_internal: int, origins, directions):
                     lo = np.where(bad, -np.inf, np.minimum(t0, t1)).max(0)
                     hi = np.where(bad, np.inf, np.maximum(t0, t1)).min(0)
                     t_near = np.maximum(lo, eps)
-                    ok = (t_near < hi) & (t_near <= best)
+                    ok = occ & (t_near < hi) & (t_near <= best)
                     js = np.flatnonzero(ok)
                     js = js[np.argsort(t_near[js], kind="stable")]
                     stack.extend((8 * e + 1 + int(j), t_near[j]) for j in js[::-1])
                 else:
-                    visits_l[i] += 1
-                    lr = leaf_rows[e - n_internal][:72].reshape(9, 8)
+                    blk = e - n_internal
+                    occ = slot_occ[blk]
+                    out["leaf_visits"][i] += 1
+                    out["tri_tests"][i] += occ.sum()
+                    lr = leaf_rows[blk][:72].reshape(9, 8)
                     v0, e1, e2 = lr[0:3], lr[3:6], lr[6:9]
                     p = np.stack([d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
                                   d[0] * e2[1] - d[1] * e2[0]])
@@ -111,35 +144,44 @@ def k1_walk(nodes, leaf_rows, n_internal: int, origins, directions):
                     u = inv_det * (tv[0] * p[0] + tv[1] * p[1] + tv[2] * p[2])
                     v = inv_det * (d[0] * q[0] + d[1] * q[1] + d[2] * q[2])
                     t = inv_det * (e2[0] * q[0] + e2[1] * q[1] + e2[2] * q[2])
-                    hit = (u >= -eps) & (u <= one_eps) & (v >= -eps) & (u + v <= one_eps) & (t >= eps)
+                    u_in = (u >= -eps) & (u <= one_eps)
+                    v_in = u_in & (v >= -eps) & (u + v <= one_eps)
+                    out["tri_ops"][i] += np.where(
+                        u_in, np.where(v_in, TRI_TEST_OPS, TRI_V_FAIL_OPS),
+                        TRI_U_FAIL_OPS)[occ].sum()
+                    hit = v_in & (t >= eps)
                     if hit.any():
                         best = min(best, f32(t[hit].min()))
             best_t[i] = best
-    return visits_n, visits_l, best_t
+    out["t"] = best_t
+    return out
 
 
-def k1_work(scene, origin, direction) -> dict:
-    """K1's bytes and operations for one launch with the fused attribute
-    epilogue over the rays (origin, direction: Vec3 of (R,)); the
-    operations from k1_walk on K1_SAMPLE of them (seeded), scaled to R.
-    Returns bytes, ops, the mean visits per ray and the sample size."""
+def k1_work(scene, origin, direction, epilogue: bool) -> dict:
+    """K1's bytes and operations for one launch over the rays (origin,
+    direction: Vec3 of (R,)), with the fused attribute epilogue (as on the
+    camera bounce) or without it (bounces 1+); the operations from k1_walk
+    on K1_SAMPLE of the rays (seeded), scaled to R. Returns bytes, ops, the
+    mean visits and tests per ray and the sample size."""
     r = origin.shape[0]
     idx = np.sort(np.random.default_rng(0).choice(r, min(K1_SAMPLE, r), replace=False))
     o = np.stack([c.cpu().numpy()[idx] for c in (origin.x, origin.y, origin.z)], 1)
     d = np.stack([c.cpu().numpy()[idx] for c in (direction.x, direction.y, direction.z)], 1)
     bvh, tris = scene.bvh, scene.triangles
-    vn, vl, _ = k1_walk(bvh.nodes.cpu().numpy(), tris.leaf_rows.cpu().numpy(),
-                        bvh.n_internal, o, d)
-    per_ray = (RAY_SETUP_OPS + vn.mean() * 8 * BOX_TEST_OPS + vl.mean() * 8 * TRI_TEST_OPS
-               + EPILOGUE_OPS)
-    # each input read once (rays: 8 planes; the tables at the columns K1
-    # reads: 48 of a node row, 72 of a leaf row, 25 of an attribute row),
-    # each output written once (t, u, v, dropped_min, tri; 16 planes)
-    table_bytes = 4 * (bvh.n_internal * 48 + tris.leaf_rows.shape[0] * 72
-                       + scene.n_triangles * 25)
-    ray_bytes = r * (8 * 4 + 5 * 4 + 16 * 4)
+    walk = k1_walk(bvh.nodes.cpu().numpy(), tris.leaf_rows.cpu().numpy(), bvh.n_internal, o, d)
+    per_ray = (RAY_SETUP_OPS + walk["box_tests"].mean() * BOX_TEST_OPS
+               + walk["tri_ops"].mean() + (EPILOGUE_OPS if epilogue else 0))
+    # each input read once: the rays (8 planes), each occupied child's box
+    # (6 floats), each occupied slot's v0, e1, e2 (9) and, for the
+    # epilogue, each triangle's 25 attribute columns; each output written
+    # once: t, u, v, dropped_min, tri and the epilogue's 16 planes
+    slot_occ, child_occ = occupancy(tris.leaf_rows.cpu(), bvh.n_internal, bvh.depth)
+    table_bytes = 4 * (int(child_occ.sum()) * 6 + int(slot_occ.sum()) * 9
+                       + (scene.n_triangles * 25 if epilogue else 0))
+    ray_bytes = r * 4 * (8 + 5 + (16 if epilogue else 0))
     return {"bytes": ray_bytes + table_bytes, "ops": float(per_ray * r),
-            "node_visits_per_ray": float(vn.mean()), "leaf_visits_per_ray": float(vl.mean()),
+            **{f"{k}_per_ray": float(walk[k].mean())
+               for k in ("node_visits", "leaf_visits", "box_tests", "tri_tests", "tri_ops")},
             "sample": len(idx)}
 
 

@@ -10,17 +10,21 @@ only PyTorch; tests/conftest.py imports jax, so run it there without it:
 Tolerance: none. The kernels are built with --fmad=false and repeat the
 plain versions' operation order, so hits and attribute planes are
 bit-equal to the plain versions run on the same card; so are K3's u8
-pixels (it sums the luminances in the plain version's order).
+pixels (it sums the luminances in the plain version's order). The K1
+tests run each of its two kernels (`k1_kernel`).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from raytracing_c_tpu_torch.models import scene as ps
 from raytracing_c_tpu_torch.ops import denoise as dn
 from raytracing_c_tpu_torch.ops import traverse_cuda as tc
+from raytracing_c_tpu_torch.render import camera, integrator
 from raytracing_c_tpu_torch.render.renderer import render
+from raytracing_c_tpu_torch.utils import rng
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 pytestmark = pytest.mark.cuda
@@ -31,6 +35,14 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     return torch.device("cuda")
+
+
+@pytest.fixture(params=["bvh_traverse", "bvh_traverse_wide"])
+def k1_kernel(request, monkeypatch):
+    """Each K1 kernel in turn, whatever the launch's size: WIDE_BELOW at 0
+    keeps every launch on one thread per ray, at 2^31 on eight lanes."""
+    monkeypatch.setattr(tc, "WIDE_BELOW", 0 if request.param == "bvh_traverse" else 2**31)
+    return request.param
 
 
 def _soup_scene(n: int, seed: int, device) -> ps.Scene:
@@ -59,7 +71,7 @@ def _rays(n: int, seed: int, device):
 
 
 @pytest.mark.parametrize("n_tri,depth", [(900, 3), (15452, 4), (33000, 5)])
-def test_kernels_match_plain(cuda_device, n_tri, depth):
+def test_kernels_match_plain(cuda_device, k1_kernel, n_tri, depth):
     ts = _soup_scene(n_tri, 8, cuda_device)
     assert ts.bvh.depth == depth
     o, d = _rays(4096, 9, cuda_device)
@@ -68,7 +80,7 @@ def test_kernels_match_plain(cuda_device, n_tri, depth):
     bare = tc.bvh_traverse(o, d, ts.triangles, ts.bvh)
     want = tc.bvh_traverse_plain(o, d, ts.triangles, fuse_attr=True)
     torch.cuda.synchronize()
-    assert tc.launch_counts()["bvh_traverse"] == 2
+    assert tc.launch_counts()[k1_kernel] == 2
     for k in ("tri", "t", "u", "v", "attrs"):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
     for k in ("tri", "t", "u", "v"):
@@ -80,7 +92,79 @@ def test_kernels_match_plain(cuda_device, n_tri, depth):
     assert tc.launch_counts()["fetch_attrs"] == 1
 
 
-def test_active_and_t_max(cuda_device):
+def test_far_from_the_origin_matches_plain(cuda_device, k1_kernel):
+    """A soup moved to 1e4 and rays that graze its leaf boxes
+    (chip_smoke.far_soup): the slab test's rounding grows with the ray's
+    distance to the box, not with |o|, so K1 finds every hit."""
+    scene, o, d = chip_smoke.far_soup(ps, np, cuda_device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    o = Vec3(t(o[:, 0]), t(o[:, 1]), t(o[:, 2]))
+    d = Vec3(t(d[:, 0]), t(d[:, 1]), t(d[:, 2]))
+    tc.reset_launch_counts()
+    got = tc.bvh_traverse(o, d, scene.triangles, scene.bvh, fuse_attr=True)
+    want = tc.bvh_traverse_plain(o, d, scene.triangles, fuse_attr=True)
+    torch.cuda.synchronize()
+    assert tc.launch_counts()[k1_kernel] == 1
+    for k in ("tri", "t", "u", "v", "attrs"):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+    assert (got["tri"] >= 0).float().mean() > 0.5
+
+
+def test_bounce1_rays_match_plain(cuda_device, k1_kernel):
+    """The live rays entering bounce 1 of a stand-in render (incoherent
+    secondary rays, trace_bucketed's own compacted state): K1 with and
+    without its epilogue equals the oracle."""
+    scene = chip_smoke.procedural_scene(ps, np, torch, cuda_device, n=40, tex=64)
+    w, h = 96, 64
+    px = torch.arange(w * h, device=cuda_device) % w
+    py = torch.arange(w * h, device=cuda_device) // w
+    jit = torch.full((w * h,), 0.5, device=cuda_device)
+    o, d = camera.generate_rays(scene.camera, w, h, px, py, jit, jit)
+    _, _, states = chip_smoke.bounce_rays(integrator, scene, o, d,
+                                          rng.prng_key(0, cuda_device), 2)
+    o1, d1 = states[1]
+    assert 1000 < o1.shape[0] < w * h
+    got = tc.bvh_traverse(o1, d1, scene.triangles, scene.bvh, fuse_attr=True)
+    bare = tc.bvh_traverse(o1, d1, scene.triangles, scene.bvh)
+    want = tc.bvh_traverse_plain(o1, d1, scene.triangles, fuse_attr=True)
+    torch.cuda.synchronize()
+    for k in ("tri", "t", "u", "v", "attrs"):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+    for k in ("tri", "t", "u", "v"):
+        torch.testing.assert_close(bare[k], want[k], rtol=0, atol=0, msg=k)
+    assert (got["tri"] >= 0).float().mean() > 0.2
+
+
+def test_depth_above_the_table_limit_raises(cuda_device):
+    """K1's child references admit trees of depth <= 8: a deeper BVH raises
+    before any launch."""
+    ts = _soup_scene(100, 1, cuda_device)
+    o, d = _rays(64, 2, cuda_device)
+    before = tc.launch_counts()
+    deep = ps.BVH(nodes=ts.bvh.nodes, depth=tc.MAX_DEPTH + 1,
+                  last_row_offset=ts.bvh.last_row_offset)
+    with pytest.raises(ValueError, match="depth 9"):
+        tc.bvh_traverse(o, d, ts.triangles, deep)
+    assert tc.launch_counts() == before
+
+
+def test_launch_size_picks_the_kernel(cuda_device):
+    """Fewer than WIDE_BELOW rays run eight lanes per ray, WIDE_BELOW or
+    more one thread per ray; both give the oracle's hits."""
+    ts = _soup_scene(900, 3, cuda_device)
+    o, d = _rays(tc.WIDE_BELOW, 5, cuda_device)
+    want = tc.bvh_traverse_plain(o, d, ts.triangles)
+    for r, kernel in ((tc.WIDE_BELOW - 1, "bvh_traverse_wide"), (tc.WIDE_BELOW, "bvh_traverse")):
+        part = Vec3(o.x[:r], o.y[:r], o.z[:r]), Vec3(d.x[:r], d.y[:r], d.z[:r])
+        tc.reset_launch_counts()
+        got = tc.bvh_traverse(*part, ts.triangles, ts.bvh)
+        assert tc.launch_counts() == {"bvh_traverse": 0, "bvh_traverse_wide": 0,
+                                      "fetch_attrs": 0, kernel: 1}
+        torch.testing.assert_close(got["tri"], want["tri"][:r], rtol=0, atol=0)
+        torch.testing.assert_close(got["t"], want["t"][:r], rtol=0, atol=0)
+
+
+def test_active_and_t_max(cuda_device, k1_kernel):
     ts = _soup_scene(900, 3, cuda_device)
     o, d = _rays(2048, 4, cuda_device)
     i = torch.arange(2048, device=cuda_device)
@@ -100,20 +184,21 @@ def test_bad_tables_raise(cuda_device):
         tc.bvh_traverse(o, d, ts.triangles, ts.bvh)
 
 
-def test_render_kernel_path_matches_brute(cuda_device):
+def test_render_kernel_path_matches_brute(cuda_device, k1_kernel):
     """render() through the kernels equals render() through the brute-force
-    oracle, and the main path launched both kernels."""
+    oracle, and the main path launched K1 (each of its kernels in turn) and
+    K2."""
     ts = _soup_scene(2000, 6, cuda_device)
     tc.reset_launch_counts()
     img_k, st_k = render(ts, 48, 40, spp=2, max_bounces=4, seed=1, method="bvh")
     counts = tc.launch_counts()
     img_b, st_b = render(ts, 48, 40, spp=2, max_bounces=4, seed=1, method="brute")
-    assert counts["bvh_traverse"] > 0 and counts["fetch_attrs"] > 0
+    assert counts[k1_kernel] > 0 and counts["fetch_attrs"] > 0
     np.testing.assert_array_equal(img_k, img_b)
     assert st_k.rays_traced == st_b.rays_traced
 
 
-@pytest.mark.parametrize("h,w", [(1080, 1920), (7, 5), (1, 1)])
+@pytest.mark.parametrize("h,w", [(1080, 1920), (7, 5), (1, 1), (1, 77), (77, 1), (33, 65)])
 def test_denoise_matches_plain(cuda_device, h, w):
     rng = np.random.default_rng(h + w)
     img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
@@ -126,6 +211,19 @@ def test_denoise_matches_plain(cuda_device, h, w):
     assert dn.denoise_u8.launches == before + 1
     assert got.device.type == "cuda" and got.dtype == torch.uint8 and got.shape == x.shape
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_denoise_ties_match_plain(cuda_device):
+    """Equal luminances ((0, 10, 0) and (17, 0, 49)) around fireflies, and
+    a black band: the network's index keys pick the stable sort's sample."""
+    rng_ = np.random.default_rng(3)
+    tie = np.array([[0, 10, 0], [17, 0, 49]], np.uint8)
+    img = tie[rng_.integers(0, 2, (48, 70))]
+    img[2::4, 2::4] = 255
+    img[40:] = 0
+    img[44, 30] = 255
+    x = torch.from_numpy(img).to(cuda_device)
+    torch.testing.assert_close(dn.denoise_u8(x), dn.denoise_u8_plain(x), rtol=0, atol=0)
 
 
 def test_denoise_removes_a_firefly(cuda_device):

@@ -16,6 +16,7 @@ from raytracing_c_tpu.ops.denoise import denoise_u8 as jax_denoise
 from raytracing_c_tpu.ops.denoise_pallas import denoise_u8_pallas
 from raytracing_c_tpu_torch.ops import cuda_build
 from raytracing_c_tpu_torch.ops import denoise as dn
+from raytracing_c_tpu_torch.utils.color import LUMA
 
 TOL = 1
 
@@ -128,12 +129,89 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_k3_bound_at_the_flagship():
-    """K3's bound at 1920x1080 (utils/bounds.py): 12.4 MB of bytes and 196
-    operations per pixel at the H100's non-FMA rate; operations bind."""
+    """K3's bound at 1920x1080 (utils/bounds.py): 12.4 MB of bytes and 105
+    operations per pixel of the shared-memory design at the H100's rate of
+    one instruction per lane per clock; operations bind."""
     from raytracing_c_tpu_torch.utils import bounds
 
     b = bounds.bound(bounds.k3_work(1080, 1920))
-    assert bounds.K3_OPS_PER_PIXEL == 196
+    assert bounds.K3_OPS_PER_PIXEL == 105
     assert b["bound_by"] == "operations"
     assert b["bytes_ms"] == pytest.approx(6 * 2_073_600 / 3.35e12 * 1e3, rel=1e-12)
-    assert b["bound_ms"] == pytest.approx(196 * 2_073_600 / 33.5e12 * 1e3, rel=1e-12)
+    assert b["bound_ms"] == pytest.approx(105 * 2_073_600 / 33.5e12 * 1e3, rel=1e-12)
+
+
+def _network(keys: np.ndarray) -> np.ndarray:
+    """K3's median network (ops/denoise.py MEDIAN9_NETWORK) on (..., 9)
+    keys; returns the key it leaves at position 4."""
+    p = [keys[..., k].copy() for k in range(9)]
+    for a, b in dn.MEDIAN9_NETWORK:
+        p[a], p[b] = np.minimum(p[a], p[b]), np.maximum(p[a], p[b])
+    return p[4]
+
+
+def test_median_network_selects_the_median():
+    """19 compare-exchanges, and the fifth smallest of every 0-1 input and
+    of every permutation of 9 distinct keys."""
+    import itertools
+
+    assert len(dn.MEDIAN9_NETWORK) == 19
+    bits = (np.arange(512)[:, None] >> np.arange(9)) & 1
+    np.testing.assert_array_equal(_network(bits), np.sort(bits, 1)[:, 4])
+    perms = np.array(list(itertools.permutations(range(9))))
+    assert (_network(perms) == 4).all()
+
+
+def _stable_median_and_network_pick(img: np.ndarray):
+    """Per pixel, the neighbour index the plain version's stable sort puts
+    in the middle, and the one K3's network picks from its keys."""
+    f = torch.from_numpy(img).to(torch.float32) * (1.0 / 255.999)
+    h, w, _ = img.shape
+    ys, xs = torch.arange(h), torch.arange(w)
+    lums = []
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            s = f[torch.clamp(ys + dy, 0, h - 1)][:, torch.clamp(xs + dx, 0, w - 1)]
+            lums.append((s[..., 0] * LUMA[0] + s[..., 1] * LUMA[1]) + s[..., 2] * LUMA[2])
+    lum = torch.stack(lums, -1)
+    want = torch.sort(lum, dim=-1, stable=True)[1][..., 4].numpy()
+    bits = lum.view(torch.int32).numpy().astype(np.int64)
+    keys = (np.maximum(bits - dn.KEY_BASE, 0) << 4) | np.arange(9)
+    assert keys.max() < 2**32
+    return want, _network(keys) & 15
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_median_network_picks_the_stable_sort_median(seed):
+    img = _fireflies((40, 64, 3), seed)
+    img[:8] = 0  # a black band: all-zero keys, told apart by the index alone
+    want, got = _stable_median_and_network_pick(img)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_median_network_picks_the_stable_median_on_ties():
+    """The planted luminance ties of test_luminance_ties_pick_the_stable_median."""
+    rng = np.random.default_rng(3)
+    tie = np.array([[0, 10, 0], [17, 0, 49]], np.uint8)
+    img = tie[rng.integers(0, 2, (24, 36))]
+    img[2::4, 2::4] = 255
+    want, got = _stable_median_and_network_pick(img)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 1
+
+
+def test_luminance_keys_keep_the_order_of_every_u8_colour():
+    """Every u8 colour's luminance is 0 or in [2^-13, 1), where float32 bits
+    rise with the value, so K3's 27-bit key keeps the order."""
+    c = torch.arange(256, dtype=torch.float32) * (1.0 / 255.999)
+    g_b = (c[:, None] * LUMA[1], c[None, :] * LUMA[2])
+    least, most = 1.0, 0.0
+    for r in range(256):
+        lum = ((c[r] * LUMA[0] + g_b[0]) + g_b[1]).reshape(-1)
+        nz = lum[lum > 0]
+        if nz.numel():
+            least = min(least, float(nz.min()))
+        most = max(most, float(lum.max()))
+    assert least >= 2.0**-13 and most < 1.0
+    keys = np.maximum(np.array([0, 0x39000000, 0x3F7FFFFF]) - dn.KEY_BASE, 0)
+    assert keys.tolist() == [0, 1, 0x3F7FFFFF - dn.KEY_BASE] and keys[-1] < 2**27

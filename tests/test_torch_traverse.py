@@ -132,7 +132,7 @@ def test_launch_counters_stay_zero_on_cpu(soup):
     tc.fetch_attrs(ts.triangles.attr_rows, hit["tri"], hit["u"], hit["v"])
     st = tint._initial_state(tvec(o), tvec(d))
     tint.bounce_step(ts, st, torch.rand(3, 1024), method="bvh")
-    assert tc.launch_counts() == {"bvh_traverse": 0, "fetch_attrs": 0}
+    assert tc.launch_counts() == {"bvh_traverse": 0, "bvh_traverse_wide": 0, "fetch_attrs": 0}
 
 
 def test_wrapper_rejects_other_devices(soup):
@@ -144,33 +144,82 @@ def test_wrapper_rejects_other_devices(soup):
 
 
 def test_k1_walk_finds_the_plain_hits(soup):
-    """utils/bounds.k1_walk, whose visit counts give K1's operation bound,
-    re-walks K1's descent on the host: its nearest t equals the plain
-    version's on every ray (exact), and it visits no more leaves than the
-    tree holds."""
+    """utils/bounds.k1_walk, whose test counts give K1's operation bound,
+    re-walks the ordered nearest-first descent on the host: its nearest t
+    equals the plain version's on every ray (exact), it tests only occupied
+    children and slots, and it visits no more leaves than the tree holds."""
     from raytracing_c_tpu_torch.utils import bounds
 
     _, ts, o, d = soup
     bvh, tris = ts.bvh, ts.triangles
-    visits_n, visits_l, best_t = bounds.k1_walk(bvh.nodes.numpy(), tris.leaf_rows.numpy(),
-                                                bvh.n_internal, o[:256], d[:256])
+    walk = bounds.k1_walk(bvh.nodes.numpy(), tris.leaf_rows.numpy(), bvh.n_internal,
+                          o[:256], d[:256])
     want = tc.bvh_traverse_plain(tvec(o[:256]), tvec(d[:256]), tris)
-    np.testing.assert_array_equal(best_t, want["t"].numpy())
-    assert (visits_n >= 1).all() and visits_l.max() <= tris.leaf_rows.shape[0]
+    np.testing.assert_array_equal(walk["t"], want["t"].numpy())
+    assert (walk["node_visits"] >= 1).all()
+    assert walk["leaf_visits"].max() <= tris.leaf_rows.shape[0]
+    assert (walk["box_tests"] <= 8 * walk["node_visits"]).all()
+    assert (walk["tri_tests"] <= 8 * walk["leaf_visits"]).all()
+    # each triangle test at the cost of the step where it leaves: some
+    # leave after u or v, none costs more than the full test
+    assert (walk["tri_ops"] >= bounds.TRI_U_FAIL_OPS * walk["tri_tests"]).all()
+    assert (walk["tri_ops"] <= bounds.TRI_TEST_OPS * walk["tri_tests"]).all()
+    assert walk["tri_ops"].sum() < bounds.TRI_TEST_OPS * walk["tri_tests"].sum()
+    # random_mesh(900) fills 113 of 512 leaf blocks: empty children skipped
+    assert walk["box_tests"].sum() < 8 * walk["node_visits"].sum()
 
 
-def test_k1_work_counts_the_walk(soup):
+@pytest.mark.parametrize("epilogue", [True, False])
+def test_k1_work_counts_the_walk(soup, epilogue):
     """utils/bounds.k1_work walks every ray when it has fewer than its
-    sample, and its operations follow the walk's visit counts (exact up to
-    float64 rounding)."""
+    sample; its operations follow the walk's box and triangle tests (exact
+    up to float64 rounding); its bytes count each occupied child box and
+    slot once, and the epilogue's attribute rows and 16 planes only with
+    the epilogue."""
+    from raytracing_c_tpu_torch.ops.traverse_cuda import occupancy
     from raytracing_c_tpu_torch.utils import bounds
 
     _, ts, o, d = soup
-    work = bounds.k1_work(ts, tvec(o[:300]), tvec(d[:300]))
-    vn, vl, _ = bounds.k1_walk(ts.bvh.nodes.numpy(), ts.triangles.leaf_rows.numpy(),
-                               ts.bvh.n_internal, o[:300], d[:300])
-    per_ray = (bounds.RAY_SETUP_OPS + vn.mean() * 8 * bounds.BOX_TEST_OPS
-               + vl.mean() * 8 * bounds.TRI_TEST_OPS + bounds.EPILOGUE_OPS)
+    work = bounds.k1_work(ts, tvec(o[:300]), tvec(d[:300]), epilogue=epilogue)
+    walk = bounds.k1_walk(ts.bvh.nodes.numpy(), ts.triangles.leaf_rows.numpy(),
+                          ts.bvh.n_internal, o[:300], d[:300])
+    per_ray = (bounds.RAY_SETUP_OPS + walk["box_tests"].mean() * bounds.BOX_TEST_OPS
+               + walk["tri_ops"].mean() + (bounds.EPILOGUE_OPS if epilogue else 0))
     assert work["sample"] == 300
     assert work["ops"] == pytest.approx(per_ray * 300, rel=1e-12)
-    assert work["node_visits_per_ray"] == pytest.approx(vn.mean(), rel=1e-12)
+    assert work["node_visits_per_ray"] == pytest.approx(walk["node_visits"].mean(), rel=1e-12)
+    assert work["box_tests_per_ray"] == pytest.approx(walk["box_tests"].mean(), rel=1e-12)
+    assert work["tri_ops_per_ray"] == pytest.approx(walk["tri_ops"].mean(), rel=1e-12)
+    slot_occ, child_occ = occupancy(ts.triangles.leaf_rows, ts.bvh.n_internal, ts.bvh.depth)
+    assert int(slot_occ.sum()) == 900
+    tables = 4 * (6 * int(child_occ.sum()) + 9 * 900 + (25 * 900 if epilogue else 0))
+    assert work["bytes"] == 300 * 4 * (13 + (16 if epilogue else 0)) + tables
+
+
+@pytest.mark.parametrize("corners,want", [
+    # u = x - y, v = y: a hit at (0.75, 0.25), u outside at (0.25, 0.75)
+    (((0, 0, 0), (1, 0, 0), (1, 1, 0)), [52, 26]),
+    # u = x, v = y - x: v outside at (0.75, 0.25), a hit at (0.25, 0.75)
+    (((0, 0, 0), (1, 1, 0), (0, 1, 0)), [44, 52]),
+])
+def test_k1_walk_counts_a_triangle_test_where_it_leaves(corners, want):
+    """One triangle, two rays down -z through its box: the test costs
+    TRI_U_FAIL_OPS when u falls outside, TRI_V_FAIL_OPS when v or u + v
+    does, TRI_TEST_OPS when it runs to t."""
+    from raytracing_c_tpu_torch.models import scene as ps
+    from raytracing_c_tpu_torch.utils import bounds
+
+    assert (bounds.TRI_U_FAIL_OPS, bounds.TRI_V_FAIL_OPS, bounds.TRI_TEST_OPS) == (26, 44, 52)
+    pos = np.array([corners], np.float32)
+    mesh = ps.HostMesh(pos, np.tile(np.float32([0, 0, 1]), (1, 3, 1)),
+                       np.zeros((1, 3, 2), np.float32), np.zeros(1, np.int32))
+    scene = ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
+                           ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default(),
+                           device="cpu")
+    o = np.float32([[0.75, 0.25, 1.0], [0.25, 0.75, 1.0]])
+    d = np.float32([[0, 0, -1]] * 2)
+    walk = bounds.k1_walk(scene.bvh.nodes.numpy(), scene.triangles.leaf_rows.numpy(),
+                          scene.bvh.n_internal, o, d)
+    assert walk["tri_tests"].tolist() == [1, 1]
+    assert walk["tri_ops"].tolist() == want
+    assert np.isfinite(walk["t"]).tolist() == [w == 52 for w in want]

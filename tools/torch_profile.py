@@ -14,10 +14,13 @@ helmet stand-in) three ways, then counts K1's work on it:
    overhead; the sum exceeds the plain wall by the lost overlap;
 3. torch.profiler: device time by kernel, and the device busy share of
    the batch's wall time;
-4. K1's work: a host re-walk of K1's ordered descent
-   (`raytracing_c_tpu_torch/utils/bounds.py:k1_work`) on a sample of the
-   batch's camera rays counts the box and triangle tests, and from them
-   K1's operation bound beside its bytes bound.
+4. K1 per bounce: the rays entering each bounce of the batch
+   (trace_bucketed's own compacted state, chip_smoke.bounce_rays), the K1
+   kernel the wrapper picks for them, its device ms on them with L2
+   emptied before each launch (fused epilogue on bounce 0, bare after, as
+   the main path runs it), and its bound from a host re-walk of the
+   ordered descent on a sample of them
+   (`raytracing_c_tpu_torch/utils/bounds.py:k1_work`), with the share.
 
 Prints one JSON object per view; writes the profiler table to
 DIR/torch_profile.txt (default: the current directory).
@@ -42,6 +45,7 @@ def main(argv) -> int:
 
     import chip_smoke as cs
     from raytracing_c_tpu_torch.models import scene as ps
+    from raytracing_c_tpu_torch.ops import traverse_cuda as tc
     from raytracing_c_tpu_torch.render import camera, integrator, renderer
     from raytracing_c_tpu_torch.utils import bounds, rng
 
@@ -150,13 +154,22 @@ def main(argv) -> int:
     with open(os.path.join(out_dir, "torch_profile.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
 
-    # K1's work on the batch's camera rays (fused epilogue, as on bounce 0)
+    # K1 per bounce of the batch: rays, device ms, bound and share
     kb = rng.fold_in(rng.prng_key(0, dev), b)
     jitter, _ = renderer._draw_uniforms(kb, cs.BATCH_RAYS, bounces, skip_mat=True)
     o, d = camera.generate_rays(scene.camera, w, h, px.repeat_interleave(spp),
                                 py.repeat_interleave(spp), jitter[0], jitter[1])
-    work = bounds.k1_work(scene, o, d)
-    print(json.dumps({"view": "k1_work", **work, **bounds.bound(work)}))
+    _, _, states = cs.bounce_rays(integrator, scene, o, d, rng.fold_in(kb, 1), bounces)
+    for i, (bo, bd) in enumerate(states):
+        fuse = i == 0
+        ms = cs.device_ms(torch, lambda: tc.bvh_traverse(  # noqa: B023
+            bo, bd, scene.triangles, scene.bvh, fuse_attr=fuse), 10, "bvh_traverse")
+        work = bounds.k1_work(scene, bo, bd, epilogue=fuse)
+        bd_ = bounds.bound(work)
+        print(json.dumps({"view": "k1_bounce", "gpu": gpu, "bounce": i, "rays": bo.shape[0],
+                          "kernel": "wide" if bo.shape[0] < tc.WIDE_BELOW else "thread",
+                          "epilogue": fuse, "device_ms": ms, **work, **bd_,
+                          "share": bd_["bound_ms"] / ms}))
     return 0
 
 
