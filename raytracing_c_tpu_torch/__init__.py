@@ -5,10 +5,12 @@ CUDA for NVIDIA Hopper. Subpackages and modules mirror the JAX package so
 each function has a counterpart of the same name:
 
 - `utils/`   Vec3 component planes, colour transfer, threefry RNG
-- `models/`  scene dataclasses of tensors, host-side BVH build
-- `ops/`     intersection, texture, background, Disney shading, traversal;
-             `ops/traverse_cuda.py` + `csrc/traverse.cu` hold the kernels
-- `render/`  camera, wavefront integrator, batched renderer
+- `models/`  scene dataclasses of tensors, host-side BVH build, scene cache
+- `ops/`     intersection, texture, background, env-light sampling, Disney
+             shading, traversal; `ops/traverse_cuda.py` + `csrc/traverse.cu`
+             and `ops/denoise.py` + `csrc/denoise.cu` hold the kernels
+- `render/`  camera, wavefront integrator, batched renderer, lightmap baker
+- `io/`      model loaders, image codecs; `native/` the C QOI codec
 
 The package imports torch and numpy only. Functions run on the device of
 the tensors they are given (`scene.to("cuda")`); a kernel wrapper takes its

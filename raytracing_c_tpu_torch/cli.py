@@ -7,13 +7,17 @@ Counterpart of `raytracing_c_tpu/cli.py`, with the same flag surface
 defaults 1024x1024, 16 spp, 8 bounces, output.png (driver.c:733-742), and
 the double-dashed extensions --seed, --bg, --no-bg, --batch-pixels,
 --brute-force, --method, --debug-normals, --tonemap, --profile, --nearest,
---rr. `main` renders on `device` (CUDA unless the caller asks for the CPU)
-and, with -D, denoises the frame there through the K3 kernel before its
-one read-back; a failure of the kernel is fatal. --method takes the JAX
-package's names: every traversal maps to "bvh" (the exact K1 kernel),
-brute to the brute-force oracle. --profile DIR writes a torch.profiler
-chrome trace to DIR/trace.json. --nee, --save-scene and --load-scene are
-not ported yet and exit 1.
+--rr, --nee, --save-scene, --load-scene. `main` renders on `device` (CUDA
+unless the caller asks for the CPU) and, with -D, denoises the frame there
+through the K3 kernel before its one read-back; a failure of the kernel is
+fatal. --method takes the JAX package's names: every traversal maps to
+"bvh" (the exact K1 kernel), brute to the brute-force oracle. --profile
+DIR writes a torch.profiler chrome trace to DIR/trace.json. The stages run
+in the JAX CLI's order: --load-scene CACHE, else the model; then
+--debug-normals; then --save-scene CACHE (the npz layout both packages
+read, `models/serialization.py`); then the render. --nee (environment
+next-event estimation with MIS) builds the env map's sampling table after
+the load; -V prints its build time.
 
 -T is accepted for CLI parity; device execution replaces host threads.
 """
@@ -24,10 +28,6 @@ import contextlib
 import os
 import sys
 import time
-
-#: flags parse_args accepts whose feature the port does not have yet
-NOT_PORTED = (("nee", "--nee"), ("save_scene", "--save-scene"), ("load_scene", "--load-scene"))
-
 
 def print_usage(prog: str) -> None:
     print(
@@ -144,10 +144,6 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
     if cfg is None:
         print_usage(sys.argv[0])
         return 1
-    for key, flag in NOT_PORTED:
-        if cfg[key]:
-            print(f"{flag}: not ported yet", file=sys.stderr)
-            return 1
 
     import dataclasses
 
@@ -155,7 +151,9 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
 
     from raytracing_c_tpu_torch.io.image_io import write_image
     from raytracing_c_tpu_torch.io.loader import load_scene
+    from raytracing_c_tpu_torch.models import serialization
     from raytracing_c_tpu_torch.models.scene import SHADER_DEBUG_NORMAL
+    from raytracing_c_tpu_torch.ops import env_light
     from raytracing_c_tpu_torch.ops.denoise import denoise_u8
     from raytracing_c_tpu_torch.render.renderer import render
     from raytracing_c_tpu_torch.utils.progress import ProgressBar
@@ -163,14 +161,17 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
     warn = print if cfg["verbose"] else (lambda *a, **k: None)
 
     t0 = time.perf_counter()
-    try:
-        scene = load_scene(cfg["model"], background_path=cfg["background"], warn=warn,
-                           device=device)
-    except FileNotFoundError as e:
-        # missing env map is fatal, matching the reference's load_texture
-        # error surface (driver.c:106-116)
-        print(e, file=sys.stderr)
-        return 1
+    if cfg["load_scene"]:
+        scene = serialization.load_scene_cache(cfg["load_scene"], device=device)
+    else:
+        try:
+            scene = load_scene(cfg["model"], background_path=cfg["background"], warn=warn,
+                               device=device)
+        except FileNotFoundError as e:
+            # missing env map is fatal, matching the reference's load_texture
+            # error surface (driver.c:106-116)
+            print(e, file=sys.stderr)
+            return 1
     bvh_ms = (time.perf_counter() - t0) * 1e3
     dev = scene.device
 
@@ -179,6 +180,18 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
         kind = torch.full_like(mats.shader_kind, SHADER_DEBUG_NORMAL)
         scene = dataclasses.replace(
             scene, materials=dataclasses.replace(mats, shader_kind=kind).with_rows())
+
+    if cfg["save_scene"]:
+        serialization.save_scene_cache(cfg["save_scene"], scene)
+        if cfg["verbose"]:
+            print(f"scene cache written to {cfg['save_scene']}")
+
+    if cfg["nee"]:
+        t0 = time.perf_counter()
+        env = env_light.scene_env_light(scene)
+        if cfg["verbose"] and env is not None:
+            print(f"Env light table built in {(time.perf_counter() - t0) * 1e3:.0f}ms "
+                  f"({env.w}x{env.h} texels)")
 
     if cfg["verbose"]:
         print(f"Bvh generated in {bvh_ms:.0f}ms")
@@ -216,6 +229,7 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
             texture_mode=cfg["texture_mode"],
             progress=bar,
             rr=cfg["rr"],
+            nee=cfg["nee"],
             tonemap=cfg["tonemap"],
             to_host=False,
         )

@@ -5,8 +5,10 @@ decoded and encoded here on zlib + numpy (8-bit colour types 0/2/3/4/6,
 non-interlaced, filters 0-4, alpha dropped), so a model's textures and the
 environment map load where Pillow is absent. Other formats (JPEG) decode
 through Pillow only where it imports. Encoders PNG/QOI/PPM are picked by
-the output suffix (driver.c:839-874); QOI is the JAX package's pure-Python
-codec (its native C codec is not ported).
+the output suffix (driver.c:839-874). QOI goes through the native C codec
+(`raytracing_c_tpu_torch/native`, built with the system C compiler at first
+use; it raises if none builds it); `qoi_encode_plain`/`qoi_decode_plain`,
+the JAX package's pure-Python codec, are its plain version.
 """
 
 from __future__ import annotations
@@ -244,7 +246,8 @@ def write_image(path: str, img: np.ndarray, warn=print) -> None:
 
 
 # ---------------------------------------------------------------------------
-# QOI (spec: qoiformat.org), the JAX package's pure-Python codec
+# QOI (spec: qoiformat.org): the native codec, and the JAX package's
+# pure-Python codec as its plain version
 # ---------------------------------------------------------------------------
 
 _QOI_OP_INDEX = 0x00
@@ -256,6 +259,20 @@ _QOI_OP_RGBA = 0xFF
 
 
 def qoi_encode(img: np.ndarray) -> bytes:
+    """QOI bytes of an (H, W, 3) u8 image, from the native codec."""
+    from raytracing_c_tpu_torch.native import qoi_native
+
+    return qoi_native().encode(img)
+
+
+def qoi_decode(data: bytes) -> np.ndarray:
+    """(H, W, 3) u8 image of QOI bytes, from the native codec."""
+    from raytracing_c_tpu_torch.native import qoi_native
+
+    return qoi_native().decode(data)
+
+
+def qoi_encode_plain(img: np.ndarray) -> bytes:
     h, w, c = img.shape
     if c != 3:
         raise ValueError(f"qoi_encode: need (H, W, 3) u8, got {img.shape}")
@@ -310,7 +327,7 @@ def qoi_encode(img: np.ndarray) -> bytes:
     return bytes(out)
 
 
-def qoi_decode(data: bytes) -> np.ndarray:
+def qoi_decode_plain(data: bytes) -> np.ndarray:
     if data[:4] != b"qoif":
         raise ValueError("not a QOI image")
     w = int.from_bytes(data[4:8], "big")

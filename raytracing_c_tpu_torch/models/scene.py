@@ -13,7 +13,8 @@ package's, so its arrays carry across unchanged (`scene_from_numpy`):
 - textures are three flat u8 planes with per-texture offset and size.
 
 The TPU-only derived tables of the JAX scene (Pallas tables, bf16 node
-twin, texture pages) have no counterpart. On a GPU, `build_scene` and
+twin, texture pages) have no counterpart (the scene cache writes the two
+its format requires, `models/serialization.py`). On a GPU, `build_scene` and
 `scene_from_numpy` also build the traversal kernel's own node and triangle
 tables from the rows above (`ops/traverse_cuda.py:k1_tables`, cached on the
 BVH), so that the load, not the first render batch, pays for them.
@@ -322,6 +323,10 @@ class Scene:
     background: Background
     camera: Camera
     n_triangles: int = 0
+    #: env-light sampling tables (ops/env_light.EnvLight) for NEE over an
+    #: equirect background: derived from the atlas, built by the first NEE
+    #: render (`env_light.scene_env_light`), never read from arrays or files
+    env_light: object = None
 
     @property
     def device(self) -> torch.device:
@@ -492,8 +497,9 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
 
     Static fields (bvh.depth, bvh.last_row_offset, n_triangles,
     background.kind, background.tex_id) come as 0-d arrays. Keys of the
-    TPU-only derived tables (ptables, env_light, bvh.nodes_bf16,
-    atlas.pages, atlas.tpages, ...) have no field here and are ignored.
+    TPU-only derived tables (ptables, bvh.nodes_bf16, atlas.pages,
+    atlas.tpages, ...) have no field here and are ignored; so are the
+    env_light keys, whose tables a NEE render rebuilds from the atlas.
     """
 
     dev = resolve_device(device)

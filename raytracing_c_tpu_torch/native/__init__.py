@@ -1,0 +1,104 @@
+"""Native (C) host components, loaded through ctypes: the QOI codec.
+
+Counterpart of `raytracing_c_tpu/native/__init__.py`, with the port's own
+copy of the source (`qoi.c`). It is compiled with the system C compiler
+(`cc`, else `gcc`, else `clang`) at first use into
+`raytracing_c_tpu_torch/_build/qoi-<hash>/libqoi.so`, the hash covering
+the source and the flags. There is no quiet fallback: if no compiler
+builds it, `qoi_native()` raises with the compilers' messages; the
+pure-Python codec in `io/image_io.py` is the plain version the tests hold
+it against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+_HERE = Path(__file__).resolve().parent
+SOURCE = _HERE / "qoi.c"
+BUILD_DIR = _HERE.parent / "_build"
+CC_FLAGS = ("-O2", "-shared", "-fPIC")
+_lock = threading.Lock()
+_qoi = None
+
+
+def _build() -> Path:
+    """Compile qoi.c unless a build of the same source and flags exists.
+    Returns the library's path; raises RuntimeError if no compiler builds it."""
+    key = hashlib.sha256(" ".join(CC_FLAGS).encode() + b"\0" + SOURCE.read_bytes())
+    out_dir = BUILD_DIR / f"qoi-{key.hexdigest()[:16]}"
+    so = out_dir / "libqoi.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libqoi.{os.getpid()}.tmp"
+    errors = []
+    for cc in ("cc", "gcc", "clang"):
+        path = shutil.which(cc)
+        if path is None:
+            errors.append(f"{cc}: not found")
+            continue
+        cmd = [path, *CC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+        if proc.returncode == 0:
+            os.replace(tmp, so)
+            return so
+        errors.append(f"{' '.join(cmd)} -> {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    raise RuntimeError("the native QOI codec did not build:\n" + "\n".join(errors))
+
+
+class QoiNative:
+    """The C codec's encode and decode of (H, W, 3) u8 images."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        lib.qoi_encode_rgb.restype = ctypes.c_long
+        lib.qoi_encode_rgb.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_char_p, ctypes.c_long]
+        lib.qoi_decode_header.restype = ctypes.c_int
+        lib.qoi_decode_header.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                          ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.qoi_decode_rgb.restype = ctypes.c_int
+        lib.qoi_decode_rgb.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+                                       ctypes.c_int, ctypes.c_int]
+
+    def encode(self, img: np.ndarray) -> bytes:
+        if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+            raise ValueError(f"qoi encode: need (H, W, 3) u8, got {img.shape} {img.dtype}")
+        h, w, _ = img.shape
+        cap = 14 + w * h * 4 + 8
+        out = ctypes.create_string_buffer(cap)
+        n = self._lib.qoi_encode_rgb(np.ascontiguousarray(img).tobytes(), w, h, out, cap)
+        if n < 0:
+            raise RuntimeError("qoi encode failed")
+        return out.raw[:n]
+
+    def decode(self, data: bytes) -> np.ndarray:
+        w, h = ctypes.c_int(), ctypes.c_int()
+        if self._lib.qoi_decode_header(data, len(data), w, h) != 0:
+            raise ValueError("not a QOI image")
+        # a run byte covers at most 62 pixels: a larger header is not this file's
+        if w.value <= 0 or h.value <= 0 or w.value * h.value > 62 * len(data):
+            raise ValueError(f"QOI header {w.value}x{h.value} does not fit {len(data)} bytes")
+        out = ctypes.create_string_buffer(w.value * h.value * 3)
+        if self._lib.qoi_decode_rgb(data, len(data), out, w.value, h.value) != 0:
+            raise ValueError("qoi decode failed")
+        return np.frombuffer(out.raw, np.uint8).reshape(h.value, w.value, 3)
+
+
+def qoi_native() -> QoiNative:
+    """The native QOI codec, built and loaded at the first call."""
+    global _qoi
+    with _lock:
+        if _qoi is None:
+            _qoi = QoiNative(ctypes.CDLL(str(_build())))
+    return _qoi

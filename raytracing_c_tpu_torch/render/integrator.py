@@ -18,7 +18,9 @@ exactly (cast_ray, raytracer.c:505-558):
 
 Attribute fetch on the "bvh" method: the first (camera) bounce runs K1
 with its fused attribute epilogue; deeper bounces run K1 bare and fetch
-the winners' attributes with K2. Both forms give the same planes.
+the winners' attributes with K2. Both forms give the same planes. With
+nee, each bounce also launches K1 bare once more, on the shadow rays of
+its shaded lanes.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from raytracing_c_tpu_torch import EPSILON
 from raytracing_c_tpu_torch.ops import background as bg_ops
-from raytracing_c_tpu_torch.ops import disney, traverse, traverse_cuda
+from raytracing_c_tpu_torch.ops import disney, env_light, traverse, traverse_cuda
 from raytracing_c_tpu_torch.utils import rng
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
@@ -82,15 +84,27 @@ def _gather_hit_geometry(scene, origin: Vec3, direction: Vec3, hit,
 
 def bounce_step(scene, st, rand4, method: str = "bvh",
                 texture_mode: str = "bilinear", rr: bool = False,
-                bounce_i: int | None = None, fuse_attr: bool = False):
+                bounce_i: int | None = None, fuse_attr: bool = False,
+                nee: bool = False, rand2=None):
     """One wavefront bounce over a state dict of per-ray planes.
 
     st: dict(origin, direction, throughput, radiance: Vec3; active: bool
-    (R,); rays: int64 scalar tensor). rand4: (>=3, R) uniforms (lobe, u1,
-    u2[, rr]). rr: Russian roulette from bounce RR_START (beyond the
-    reference, default off): a continuing path survives with
-    p = clip(max(throughput), 0.05, 1) and is divided by p; reads rand4[3].
-    fuse_attr: fetch attributes in K1's epilogue ("bvh" method only).
+    (R,); rays: int64 scalar tensor; prev_pdf: (R,) f32). rand4: (>=3, R)
+    uniforms (lobe, u1, u2[, rr]). rr: Russian roulette from bounce
+    RR_START (beyond the reference, default off): a continuing path
+    survives with p = clip(max(throughput), 0.05, 1) and is divided by p;
+    reads rand4[3]. fuse_attr: fetch attributes in K1's epilogue ("bvh"
+    method only).
+
+    nee (beyond the reference, default off): next-event estimation of the
+    environment light with power-heuristic MIS. Each shaded vertex draws
+    one light sample (rand2: (3, R)) and casts a shadow ray from the hit
+    point, offset +-EPSILON along the geometric normal, through K1 bare
+    (no attributes: only whether it hits counts), one launch over the
+    shaded lanes; an unoccluded sample adds throughput x nee_partial. A
+    miss's background carries the BRDF side's MIS weight from
+    st["prev_pdf"] (+inf: the previous vertex drew no light sample, full
+    weight). Shadow rays count in `rays`.
     """
     active = st["active"]
     o, d = st["origin"], st["direction"]
@@ -110,14 +124,35 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
     out = disney.shade(
         scene, d, geom["normal"].normalized(), geom["ng"], geom["tangent"],
         geom["bitangent"], geom["uv_u"], geom["uv_v"], geom["mat_id"], rand4,
-        texture_mode,
+        texture_mode, nee=nee, rand2=rand2,
     )
 
     zero = Vec3.zeros((r,), o.x.device)
     radiance = st["radiance"] + Vec3.where(shaded, st["throughput"] * out["emission"], zero)
     miss = active & ~is_hit
     bg = bg_ops.eval_background(scene, d)
+    if nee:
+        pp2 = st["prev_pdf"] * st["prev_pdf"]
+        if scene.env_light is not None:
+            pl = env_light.eval_pdf(scene.env_light, d)
+            pl2 = pl * pl
+        else:
+            pl2 = disney.UNIFORM_SPHERE_PDF_SQ
+        bg = bg * torch.where(torch.isfinite(st["prev_pdf"]), pp2 / (pp2 + pl2), 1.0)
     radiance = radiance + Vec3.where(miss, st["throughput"] * bg, zero)
+
+    if nee:
+        # the shadow ray toward the light sample, over the shaded lanes only
+        wd = out["nee_dir"]
+        lanes = torch.nonzero(shaded).squeeze(1)
+        s_org = geom["point"] + geom["ng"] * torch.where(geom["ng"].dot(wd) < 0.0,
+                                                         -EPSILON, EPSILON)
+        shot = traverse.intersect_scene(scene, s_org.gather(lanes), wd.gather(lanes),
+                                        method=method)
+        lit = torch.zeros_like(shaded).index_fill_(
+            0, lanes[~torch.isfinite(shot["t"])], True)
+        radiance = radiance + Vec3.where(lit, st["throughput"] * out["nee_partial"], zero)
+        rays = rays + lanes.numel()
 
     # terminated rays keep their accumulated emission and go inactive
     cont = shaded & ~out["terminate"]
@@ -140,6 +175,11 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
     new_origin = Vec3.where(backface, origin_back, Vec3.where(cont, origin_shaded, o))
     new_dir = Vec3.where(cont, out["direction"], d)
 
+    prev_pdf = st["prev_pdf"]
+    if nee:
+        # a backface re-cast continues the same segment: it keeps its pdf
+        prev_pdf = torch.where(backface, prev_pdf,
+                               torch.where(cont, out["pdf_eval"], float("inf")))
     return {
         "origin": new_origin,
         "direction": new_dir,
@@ -147,6 +187,7 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
         "radiance": radiance,
         "active": cont | backface,
         "rays": rays,
+        "prev_pdf": prev_pdf,
     }
 
 
@@ -160,26 +201,29 @@ def _initial_state(origin: Vec3, direction: Vec3) -> dict:
         "radiance": Vec3.zeros((r,), dev),
         "active": torch.ones((r,), dtype=torch.bool, device=dev),
         "rays": torch.zeros((), dtype=torch.int64, device=dev),
+        "prev_pdf": torch.full((r,), float("inf"), device=dev),
     }
 
 
 def trace(scene, origin: Vec3, direction: Vec3, uniforms, max_bounces: int,
           method: str = "bvh", texture_mode: str = "bilinear", rr: bool = False,
-          nee: bool = False):
+          nee: bool = False, nee_uniforms=None):
     """Trace a batch of rays to completion with pre-drawn uniforms
-    (max_bounces, 4, R). Returns (radiance Vec3 of (R,), rays traced)."""
-    if nee:
-        raise NotImplementedError("nee: env-light sampling is not ported yet")
+    (max_bounces, 4, R) and, with nee, light-sample uniforms
+    (max_bounces, 3, R). Returns (radiance Vec3 of (R,), rays traced).
+    nee samples `scene.env_light` where it is built (render() builds it,
+    `env_light.scene_env_light`), else the sphere uniformly."""
     st = _initial_state(origin, direction)
     for i in range(max_bounces):
         if i > 0 and not bool(st["active"].any()):
             break  # every path ended (the reference's per-pixel break)
         st = bounce_step(scene, st, uniforms[i], method, texture_mode, rr=rr,
-                         bounce_i=i, fuse_attr=i == 0)
+                         bounce_i=i, fuse_attr=i == 0, nee=nee,
+                         rand2=nee_uniforms[i] if nee else None)
     return st["radiance"], st["rays"]
 
 
-_PLANES = ("origin", "direction", "throughput", "radiance")
+_PLANES = ("origin", "direction", "throughput", "radiance", "prev_pdf", "active")
 
 
 def trace_bucketed(scene, origin: Vec3, direction: Vec3, key, max_bounces: int,
@@ -193,29 +237,30 @@ def trace_bucketed(scene, origin: Vec3, direction: Vec3, key, max_bounces: int,
     (key, slot, bounce) exactly as the JAX package's
     `uniform(fold_in(fold_in(key, slot), bounce), (nu,))`, so a sample's
     stream and the image do not depend on the compaction. Radiance lands in
-    slot order as lanes retire (the final unpermute).
+    slot order as lanes retire (the final unpermute). With nee each lane
+    draws 7 uniforms per bounce: 4 for the material, 3 for the light sample.
     """
-    if nee:
-        raise NotImplementedError("nee: env-light sampling is not ported yet")
     r = origin.shape[0]
     dev = origin.x.device
     result = Vec3(*(torch.zeros((r,), device=dev) for _ in range(3)))
     st = _initial_state(origin, direction)
     slot = torch.arange(r, device=dev)
-    nu = 4 if rr else 3  # uniform(k, (3,)) is the prefix of uniform(k, (4,))
+    # uniform(k, (3,)) is the prefix of uniform(k, (4,)) and of (7,)
+    nu = 7 if nee else (4 if rr else 3)
     for i in range(max_bounces):
         if slot.numel() == 0:
             break
         lane_keys = rng.fold_in(rng.fold_in(key, slot), i)  # (n, 2)
         rand = rng.uniform(lane_keys, (nu,)).T  # (nu, n)
-        st = bounce_step(scene, st, rand, method, texture_mode, rr=rr,
-                         bounce_i=i, fuse_attr=i == 0)
+        st = bounce_step(scene, st, rand[:4], method, texture_mode, rr=rr,
+                         bounce_i=i, fuse_attr=i == 0, nee=nee,
+                         rand2=rand[4:] if nee else None)
         for c in "xyz":
             getattr(result, c).index_copy_(0, slot, getattr(st["radiance"], c))
         live = torch.nonzero(st["active"]).squeeze(1)
         if live.numel() < slot.numel():
             slot = slot[live]
             for name in _PLANES:
-                st[name] = st[name].gather(live)
-            st["active"] = st["active"][live]
+                v = st[name]
+                st[name] = v.gather(live) if isinstance(v, Vec3) else v[live]
     return result, st["rays"]

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from raytracing_c_tpu_torch.ops import env_light
 from raytracing_c_tpu_torch.render import camera as camera_mod
 from raytracing_c_tpu_torch.render import integrator
 from raytracing_c_tpu_torch.utils import color, rng
@@ -42,20 +43,27 @@ class RenderStats:
         return self.rays_traced / 1e6 / max(self.wall_ms / 1e3, 1e-9)
 
 
-def _draw_uniforms(key, r: int, max_bounces: int, skip_mat: bool = False):
+def _draw_uniforms(key, r: int, max_bounces: int, nee: bool = False,
+                   skip_mat: bool = False):
     """One threefry draw for raygen jitter (2, R) and, for the dense
-    tracer, the per-bounce material uniforms (max_bounces, 4, R)."""
+    tracer, the per-bounce material uniforms (max_bounces, 4, R) and, with
+    nee, the light-sample uniforms (max_bounces, 3, R) from their own
+    stream fold_in(key, 7919), so that the others do not change with nee.
+    Returns (jitter, uniforms or None, nee uniforms or None)."""
     k_jit, k_mat = rng.split(key)
     jitter = rng.uniform(k_jit, (2, r))
-    uniforms = None if skip_mat else rng.uniform(k_mat, (max_bounces, 4, r))
-    return jitter, uniforms
+    if skip_mat:
+        return jitter, None, None
+    uniforms = rng.uniform(k_mat, (max_bounces, 4, r))
+    nee_uniforms = rng.uniform(rng.fold_in(key, 7919), (max_bounces, 3, r)) if nee else None
+    return jitter, uniforms, nee_uniforms
 
 
-def _batch_core(scene, px, py, jitter, uniforms, key, *, width, height, spp,
-                max_bounces, method, texture_mode, compact, rr, tonemap=None):
+def _batch_core(scene, px, py, jitter, uniforms, nee_uniforms, key, *, width, height,
+                spp, max_bounces, method, texture_mode, compact, rr, nee, tonemap=None):
     """raygen -> trace -> per-pixel spp mean -> u8. The dense tracer reads
-    the pre-drawn `uniforms`; the bucketed tracer derives its uniforms from
-    (key, sample slot, bounce)."""
+    the pre-drawn `uniforms` (and `nee_uniforms`); the bucketed tracer
+    derives its uniforms from (key, sample slot, bounce)."""
     p = px.shape[0]
     origin, direction = camera_mod.generate_rays(
         scene.camera, width, height, px.repeat_interleave(spp),
@@ -64,12 +72,12 @@ def _batch_core(scene, px, py, jitter, uniforms, key, *, width, height, spp,
     if compact:
         radiance, rays = integrator.trace_bucketed(
             scene, origin, direction, key, max_bounces, method=method,
-            texture_mode=texture_mode, rr=rr,
+            texture_mode=texture_mode, rr=rr, nee=nee,
         )
     else:
         radiance, rays = integrator.trace(
             scene, origin, direction, uniforms, max_bounces, method=method,
-            texture_mode=texture_mode, rr=rr,
+            texture_mode=texture_mode, rr=rr, nee=nee, nee_uniforms=nee_uniforms,
         )
     rgb = torch.stack([c.reshape(p, spp).mean(dim=1)
                        for c in (radiance.x, radiance.y, radiance.z)], dim=-1)
@@ -108,10 +116,13 @@ def render(scene, width: int, height: int, spp: int = 16, max_bounces: int = 8,
     own `#if 0` path) and the "bvh" traversal kernel otherwise. compact
     (default on) selects the live-lane compacted tracer. limit_batches
     renders only the first batches (the rest of the frame stays black).
-    progress(done, total) is called after each batch is enqueued.
+    progress(done, total) is called after each batch is enqueued. nee
+    (environment next-event estimation with MIS, default off) builds the
+    scene's env-light table first if the scene has none yet
+    (`env_light.scene_env_light`), outside the timed loop.
     """
     if nee:
-        raise NotImplementedError("nee: env-light sampling is not ported yet")
+        env_light.scene_env_light(scene)
     if compact is None:
         compact = True
     if method == "auto":
@@ -138,13 +149,13 @@ def render(scene, width: int, height: int, spp: int = 16, max_bounces: int = 8,
     for b in range(n_batches):
         lo = b * batch_pixels
         kb = rng.fold_in(key, b)
-        jitter, uniforms = _draw_uniforms(kb, batch_pixels * spp, max_bounces,
-                                          skip_mat=compact)
+        jitter, uniforms, nee_uniforms = _draw_uniforms(
+            kb, batch_pixels * spp, max_bounces, nee, skip_mat=compact)
         rgb, rays = _batch_core(
             scene, xs_d[lo:lo + batch_pixels], ys_d[lo:lo + batch_pixels],
-            jitter, uniforms, rng.fold_in(kb, 1), width=width, height=height,
-            spp=spp, max_bounces=max_bounces, method=method,
-            texture_mode=texture_mode, compact=compact, rr=rr, tonemap=tonemap,
+            jitter, uniforms, nee_uniforms, rng.fold_in(kb, 1), width=width,
+            height=height, spp=spp, max_bounces=max_bounces, method=method,
+            texture_mode=texture_mode, compact=compact, rr=rr, nee=nee, tonemap=tonemap,
         )
         hi = min(lo + batch_pixels, n_pixels)
         frame[perm_d[lo:hi]] = rgb[: hi - lo]

@@ -90,9 +90,49 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return b0 ^ b1
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """jax.random.uniform(key, shape, float32) on [0, 1): the top 23 bits
-    as the mantissa of a float in [1, 2), minus one."""
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32, minval, maxval): the top 23
+    bits as the mantissa of a float in [1, 2), minus one, then
+    max(minval, f * (maxval - minval) + minval) with one rounding of the
+    multiply-add (XLA fuses it; the float64 product of two float32 is
+    exact), the bounds and their difference in float32."""
     bits = random_bits(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    if minval == 0.0 and maxval == 1.0:
+        return torch.clamp_min(f, 0.0)
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=f.device) - lo
+    return torch.maximum(lo, (f.double() * span.double() + lo.double()).float())
+
+
+#: Giles' single-precision erfinv polynomials, |w| < 5 and beyond (the
+#: coefficients XLA expands `erf_inv` to for float32)
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                  0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv with the polynomial XLA uses (Giles 2010):
+    w = -log1p(-x^2), then a degree-8 polynomial in w - 2.5 or sqrt(w) - 3
+    by Horner steps rounded once each (XLA fuses them into FMAs; the float64
+    product of two float32 is exact), times x; +-inf at +-1. torch's log1p
+    rounds differently from XLA's on some inputs, so results differ from
+    jax.lax.erf_inv by up to 2 float32 ulps there."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(lt, _ERFINV_W_LT_5[0], _ERFINV_W_GE_5[0])
+    for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
+        c = torch.where(lt, torch.tensor(a, dtype=torch.float32, device=x.device),
+                        torch.tensor(b, dtype=torch.float32, device=x.device))
+        p = (c.double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """jax.random.normal(key, shape, float32): sqrt(2) * erfinv(u) of u
+    uniform on [nextafter(-1, 0), 1)."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    return math.sqrt(2.0) * erfinv(uniform(key, shape, lo, 1.0))

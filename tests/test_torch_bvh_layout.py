@@ -220,7 +220,7 @@ def standin():
     py = torch.arange(w * h) // w
     jit = torch.full((w * h,), 0.5)
     o, d = camera.generate_rays(scene.camera, w, h, px, py, jit, jit)
-    _, _, states = chip_smoke.bounce_rays(integrator, scene, o, d, rng.prng_key(3), 2)
+    _, _, states, _ = chip_smoke.bounce_rays(integrator, scene, o, d, rng.prng_key(3), 2)
     return scene, (o, d), states[1]
 
 

@@ -77,6 +77,39 @@ def test_main_matches_jax_cli(model_dir, monkeypatch, denoise):
     assert len(np.unique(got[:4].reshape(-1, 3), axis=0)) > 1  # the env map's sky
 
 
+def test_main_nee_matches_jax_cli(model_dir, monkeypatch, capsys):
+    """--nee with the env map: the port's image equals the JAX CLI's or is
+    >= 45 dB from it, and -V reports the env table's build."""
+    monkeypatch.chdir(model_dir)
+    args = ["-W", "32", "-H", "24", "-S", "2", "-B", "3", "--nee"]
+    assert jcli.main([*args, "--method", "topk", "-O", "jax_nee.png", "standin.obj"]) == 0
+    capsys.readouterr()
+    assert tcli.main([*args, "-V", "-O", "port_nee.png", "standin.obj"], device="cpu") == 0
+    assert "Env light table built in" in capsys.readouterr().out
+    want, got = load_image_rgb_u8("jax_nee.png"), load_image_rgb_u8("port_nee.png")
+    assert got.shape == (24, 32, 3) and got.std() > 5.0
+    assert (got == want).all() or psnr(got, want) >= 45.0
+
+
+def test_main_save_then_load_scene(model_dir, monkeypatch, capsys):
+    """--save-scene writes the scene after --debug-normals (the JAX CLI's
+    order), so --load-scene of that cache renders what the direct run did;
+    the JAX CLI loads the port's cache and renders the same image."""
+    monkeypatch.chdir(model_dir)
+    args = ["-W", "24", "-H", "16", "-S", "1", "-B", "2"]
+    assert tcli.main([*args, "--debug-normals", "-V", "--save-scene", "dbg.npz", "-O",
+                      "direct.png", "standin.obj"], device="cpu") == 0
+    assert "scene cache written to dbg.npz" in capsys.readouterr().out
+    assert tcli.main([*args, "--load-scene", "dbg.npz", "-O", "cached.png"], device="cpu") == 0
+    assert jcli.main([*args, "--method", "topk", "--load-scene", "dbg.npz", "-O",
+                      "jax_cached.png"]) == 0
+    direct = load_image_rgb_u8("direct.png")
+    np.testing.assert_array_equal(load_image_rgb_u8("cached.png"), direct)
+    jax_img = load_image_rgb_u8("jax_cached.png")
+    assert (jax_img == direct).all() or psnr(jax_img, direct) >= 45.0
+    assert direct.std() > 5.0
+
+
 def test_main_writes_qoi_and_ppm(model_dir, monkeypatch):
     monkeypatch.chdir(model_dir)
     args = ["-W", "16", "-H", "8", "-S", "1", "-B", "2", "--no-bg", "standin.obj"]
@@ -94,9 +127,15 @@ def test_main_writes_qoi_and_ppm(model_dir, monkeypatch):
 @pytest.mark.parametrize("flags", [["--nee"], ["--save-scene", "s.npz"],
                                    ["--load-scene", "s.npz"]])
 def test_not_ported_flags_exit_1(model_dir, monkeypatch, capsys, flags):
+    """The three flags that once exited 1 ("not ported yet") now run and
+    exit 0 (--load-scene reads a cache written first by --save-scene)."""
     monkeypatch.chdir(model_dir)
-    assert tcli.main([*flags, "standin.obj"], device="cpu") == 1
-    assert "not ported yet" in capsys.readouterr().err
+    args = ["-W", "8", "-H", "8", "-S", "1", "-B", "2", "-O", "f.png"]
+    if flags[0] == "--load-scene":
+        assert tcli.main([*args, "--save-scene", "s.npz", "standin.obj"], device="cpu") == 0
+    assert tcli.main([*args, *flags, "standin.obj"], device="cpu") == 0
+    assert "not ported" not in capsys.readouterr().err
+    assert load_image_rgb_u8("f.png").shape == (8, 8, 3)
 
 
 def test_missing_env_map_exits_1(tmp_path, model_dir, monkeypatch, capsys):

@@ -1,5 +1,5 @@
 """The CUDA kernels (K1, K2, K3) on the card against their plain PyTorch
-versions.
+versions, K1 also on the NEE shadow rays and under render(nee=True).
 
 Every test here is marked `cuda` and skips where there is no GPU. The file
 imports neither jax nor the JAX package, so it also runs on a machine with
@@ -21,6 +21,7 @@ import torch
 import chip_smoke
 from raytracing_c_tpu_torch.models import scene as ps
 from raytracing_c_tpu_torch.ops import denoise as dn
+from raytracing_c_tpu_torch.ops import env_light
 from raytracing_c_tpu_torch.ops import traverse_cuda as tc
 from raytracing_c_tpu_torch.render import camera, integrator
 from raytracing_c_tpu_torch.render.renderer import render
@@ -120,8 +121,8 @@ def test_bounce1_rays_match_plain(cuda_device, k1_kernel):
     py = torch.arange(w * h, device=cuda_device) // w
     jit = torch.full((w * h,), 0.5, device=cuda_device)
     o, d = camera.generate_rays(scene.camera, w, h, px, py, jit, jit)
-    _, _, states = chip_smoke.bounce_rays(integrator, scene, o, d,
-                                          rng.prng_key(0, cuda_device), 2)
+    _, _, states, _ = chip_smoke.bounce_rays(integrator, scene, o, d,
+                                             rng.prng_key(0, cuda_device), 2)
     o1, d1 = states[1]
     assert 1000 < o1.shape[0] < w * h
     got = tc.bvh_traverse(o1, d1, scene.triangles, scene.bvh, fuse_attr=True)
@@ -133,6 +134,49 @@ def test_bounce1_rays_match_plain(cuda_device, k1_kernel):
     for k in ("tri", "t", "u", "v"):
         torch.testing.assert_close(bare[k], want[k], rtol=0, atol=0, msg=k)
     assert (got["tri"] >= 0).float().mean() > 0.2
+
+
+def test_shadow_rays_match_plain(cuda_device, k1_kernel):
+    """The NEE shadow rays of bounces 0 and 1 of a stand-in render under an
+    equirect env map (incoherent, mostly unoccluded, from
+    trace_bucketed's own state): K1 bare equals the oracle."""
+    scene = chip_smoke.procedural_scene(ps, np, torch, cuda_device, n=40, tex=64)
+    scene = chip_smoke.with_env_map(ps, torch, scene, chip_smoke.make_env_map(128, 64))
+    assert env_light.scene_env_light(scene) is not None
+    w, h = 96, 64
+    px = torch.arange(w * h, device=cuda_device) % w
+    py = torch.arange(w * h, device=cuda_device) // w
+    jit = torch.full((w * h,), 0.5, device=cuda_device)
+    o, d = camera.generate_rays(scene.camera, w, h, px, py, jit, jit)
+    _, _, _, shadows = chip_smoke.bounce_rays(integrator, scene, o, d,
+                                              rng.prng_key(0, cuda_device), 3, nee=True)
+    assert len(shadows) >= 2 and shadows[0][0].shape[0] > 1000
+    for so, sd in shadows[:2]:
+        tc.reset_launch_counts()
+        got = tc.bvh_traverse(so, sd, scene.triangles, scene.bvh)
+        want = tc.bvh_traverse_plain(so, sd, scene.triangles)
+        torch.cuda.synchronize()
+        assert tc.launch_counts()[k1_kernel] == 1
+        for k in ("tri", "t", "u", "v"):
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+
+
+def test_render_nee_kernel_path_matches_brute(cuda_device, k1_kernel):
+    """render(nee=True) through the kernels equals it through the
+    brute-force oracle, under an env map and under a constant sky; the
+    shadow rays add K1 launches."""
+    ts = _soup_scene(2000, 6, cuda_device)
+    for scene in (ts, chip_smoke.with_env_map(ps, torch, ts, chip_smoke.make_env_map(64, 32))):
+        kw = dict(spp=2, max_bounces=4, seed=1, nee=True)
+        tc.reset_launch_counts()
+        img_k, st_k = render(scene, 48, 40, method="bvh", **kw)
+        with_nee = tc.launch_counts()[k1_kernel]
+        img_b, st_b = render(scene, 48, 40, method="brute", **kw)
+        tc.reset_launch_counts()
+        render(scene, 48, 40, method="bvh", **{**kw, "nee": False})
+        assert with_nee > tc.launch_counts()[k1_kernel]
+        np.testing.assert_array_equal(img_k, img_b)
+        assert st_k.rays_traced == st_b.rays_traced
 
 
 def test_depth_above_the_table_limit_raises(cuda_device):

@@ -230,8 +230,16 @@ def test_shade(rng):
 
 
 def test_shade_nee_not_ported(rng):
+    """shade(nee=True), once refused, now adds the light sample: a unit
+    direction, a finite partial contribution and the scatter pdf (the
+    values are held against JAX's in test_torch_nee.py)."""
     _, ts, _ = _material_scene(rng)
-    v = tvec(np.ones((4, 3), np.float32))
+    v = tvec(np.tile([[0.0, 0.0, -1.0]], (4, 1)).astype(np.float32))
+    n = tvec(np.tile([[0.0, 0.0, 1.0]], (4, 1)).astype(np.float32))
     z = torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        tdisney.shade(ts, v, v, v, v, v, z, z, z.int(), torch.zeros(4, 4), nee=True)
+    out = tdisney.shade(ts, v, n, n, v, v, z, z, z.int(), torch.full((4, 4), 0.3), nee=True,
+                        rand2=torch.full((3, 4), 0.6))
+    assert torch.allclose(out["nee_dir"].length2(), torch.ones(4))
+    assert all(torch.isfinite(c).all() for c in (out["nee_partial"].x, out["nee_partial"].y,
+                                                  out["nee_partial"].z))
+    assert (out["pdf_eval"] > 0).all()

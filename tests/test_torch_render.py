@@ -111,13 +111,22 @@ def test_render_to_device_frame(scenes):
 
 
 def test_render_nee_not_ported(scenes):
-    with pytest.raises(NotImplementedError):
-        tren.render(scenes["quad_sphere"][1], 8, 8, nee=True)
+    """render(nee=True), once refused, now runs: on the quad+sphere scene's
+    constant sky it samples the sphere uniformly and casts a shadow ray per
+    shaded vertex, so it traces more rays than the same render without
+    nee (the NEE images are held against JAX's in test_torch_nee.py)."""
+    ts = scenes["quad_sphere"][1]
+    img, st = tren.render(ts, 8, 8, spp=2, max_bounces=3, nee=True)
+    _, plain = tren.render(ts, 8, 8, spp=2, max_bounces=3)
+    assert img.shape == (8, 8, 3) and img.std() > 0
+    assert ts.env_light is None and st.rays_traced > plain.rays_traced
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The port renders end to end, and its CLI loads a model, renders and
-    denoises (-D), without importing jax or the JAX package."""
+    """The port renders end to end (also with NEE), saves and loads a scene
+    cache, bakes a lightmap, round-trips QOI through the native codec, and
+    its CLI loads a model, renders and denoises (-D), without importing
+    jax or the JAX package."""
     obj = tmp_path / "quad.obj"
     obj.write_text("v -1 -1 0\nv 1 -1 0\nv 1 1 0\nv -1 1 0\nf 1 2 3 4\n")
     png = tmp_path / "out.png"
@@ -134,6 +143,14 @@ def test_port_imports_no_jax(tmp_path):
         "                   device='cpu')\n"
         "img, st = render(s, 16, 16, spp=1, max_bounces=2)\n"
         "assert img.shape == (16, 16, 3) and st.rays_traced > 0\n"
+        "assert render(s, 8, 8, spp=1, max_bounces=2, nee=True)[1].rays_traced > 0\n"
+        "from raytracing_c_tpu_torch.models import serialization\n"
+        "from raytracing_c_tpu_torch.render.lightmap import bake_lightmap\n"
+        "from raytracing_c_tpu_torch.io.image_io import qoi_decode, qoi_encode\n"
+        f"serialization.save_scene_cache({str(tmp_path / 'c.npz')!r}, s)\n"
+        f"s2 = serialization.load_scene_cache({str(tmp_path / 'c.npz')!r}, device='cpu')\n"
+        "assert bake_lightmap(s2, 8, 8, samples=1, max_bounces=1).shape == (8, 8, 3)\n"
+        "assert (qoi_decode(qoi_encode(img)) == img).all()\n"
         "from raytracing_c_tpu_torch import cli\n"
         "from raytracing_c_tpu_torch.io.image_io import load_image_rgb_u8\n"
         f"argv = ['-W', '16', '-H', '12', '-S', '1', '-B', '2', '-D', '--no-bg', '-O', {str(png)!r},"

@@ -14,8 +14,9 @@ take the arguments this tree's wrappers take.
    -Xptxas -v, all at once, and prints what ptxas says of each kernel
    (registers, stack frame, spills);
 2. on chip_smoke.py's K1 ray sets (camera and random rays on the
-   procedural helmet stand-in and on the soup, 262,144 each, and the live
-   rays entering bounces 1-7 of the image-centre batch): the hits of the
+   procedural helmet stand-in and on the soup, 262,144 each, the live
+   rays entering bounces 1-7 of the image-centre batch, and the NEE shadow
+   rays of its bounces 0 and 1 under the env map): the hits of the
    other tree's K1 and of both of this tree's K1 kernels (one thread per
    ray, eight lanes per ray, whatever the launch's size) against the
    brute-force oracle, then the device ms per launch (torch.profiler, L2
@@ -91,6 +92,7 @@ def main(argv) -> int:
     from raytracing_c_tpu_torch.models import scene as ps
     from raytracing_c_tpu_torch.ops import cuda_build
     from raytracing_c_tpu_torch.ops import denoise as dn
+    from raytracing_c_tpu_torch.ops import env_light
     from raytracing_c_tpu_torch.ops import traverse_cuda as tc
     from raytracing_c_tpu_torch.utils import bounds
 
@@ -133,7 +135,10 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     scene_d = cs.procedural_scene(ps, np, torch, dev)
     soup_d = cs.soup_scene(ps, np, dev)
-    sets, _ = cs.k1_ray_sets(scene_d, soup_d, dev)
+    scene_env = cs.with_env_map(ps, torch, scene_d, cs.make_env_map())
+    env_light.scene_env_light(scene_env)
+    sets, shadow_sets, _ = cs.k1_ray_sets(scene_d, soup_d, scene_env, dev)
+    sets += shadow_sets
     ok = True
 
     def ours(kernel, o, d, sc, fuse):

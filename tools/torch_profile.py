@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one render batch of the PyTorch port spends its time, on a GPU.
 
-    python3 tools/torch_profile.py [--out DIR]
+    python3 tools/torch_profile.py [--nee] [--out DIR]
 
 Renders the batch holding the image centre of chip_smoke.py's main path
 (1920x1080, 16 spp -> 262,144 camera samples, 8 bounces, the procedural
@@ -21,6 +21,14 @@ helmet stand-in) three ways, then counts K1's work on it:
    the main path runs it), and its bound from a host re-walk of the
    ordered descent on a sample of them
    (`raytracing_c_tpu_torch/utils/bounds.py:k1_work`), with the share.
+
+With --nee the batch renders with environment next-event estimation
+under chip_smoke's 2048x1024 env map (chip_smoke.with_env_map): the
+layers split the shadow rays' K1 launches ("shadow intersect (K1)") from
+the primary ones and time the env-light sample and pdf evaluation as
+layers of their own ("env sample", inside shade; "env eval", at the
+misses), and step 4 lists each bounce's shadow launch beside its primary
+one.
 
 Prints one JSON object per view; writes the profiler table to
 DIR/torch_profile.txt (default: the current directory).
@@ -45,6 +53,7 @@ def main(argv) -> int:
 
     import chip_smoke as cs
     from raytracing_c_tpu_torch.models import scene as ps
+    from raytracing_c_tpu_torch.ops import env_light
     from raytracing_c_tpu_torch.ops import traverse_cuda as tc
     from raytracing_c_tpu_torch.render import camera, integrator, renderer
     from raytracing_c_tpu_torch.utils import bounds, rng
@@ -53,9 +62,15 @@ def main(argv) -> int:
         print("torch_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     out_dir = argv[argv.index("--out") + 1] if "--out" in argv else "."
+    nee = "--nee" in argv
     os.makedirs(out_dir, exist_ok=True)
     dev = torch.device("cuda", 0)
     scene = cs.procedural_scene(ps, np, torch, dev)
+    if nee:
+        scene = cs.with_env_map(ps, torch, scene, cs.make_env_map())
+        env = env_light.scene_env_light(scene)
+        print(json.dumps({"view": "env_table", "w": env.w, "h": env.h,
+                          "host_build_s": env.seconds}))
     w, h, spp, bounces = cs.WIDTH, cs.HEIGHT, cs.SPP, cs.BOUNCES
     spp_px = cs.BATCH_RAYS // spp
     n_batches = math.ceil(w * h / spp_px)
@@ -66,10 +81,11 @@ def main(argv) -> int:
 
     def batch():
         kb = rng.fold_in(rng.prng_key(0, dev), b)
-        jitter, _ = renderer._draw_uniforms(kb, cs.BATCH_RAYS, bounces, skip_mat=True)
+        jitter = renderer._draw_uniforms(kb, cs.BATCH_RAYS, bounces, skip_mat=True)[0]
         return renderer._batch_core(
-            scene, px, py, jitter, None, rng.fold_in(kb, 1), width=w, height=h, spp=spp,
+            scene, px, py, jitter, None, None, rng.fold_in(kb, 1), width=w, height=h, spp=spp,
             max_bounces=bounces, method="bvh", texture_mode="bilinear", compact=True, rr=False,
+            nee=nee,
         )
 
     gpu = cs._gpu_line()
@@ -79,19 +95,31 @@ def main(argv) -> int:
     _, rays = batch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    print(json.dumps({"view": "plain", "gpu": gpu, "batch": b, "samples": cs.BATCH_RAYS,
+    print(json.dumps({"view": "plain", "gpu": gpu, "nee": nee, "batch": b,
+                      "samples": cs.BATCH_RAYS,
                       "wall_s": wall, "rays": int(rays), "mrays_per_s": int(rays) / wall / 1e6}))
 
-    # layers: wrap each stage with synchronize + host clock
+    # layers: wrap each stage with synchronize + host clock; a layer called
+    # inside another (the env sample and the light's background lookup
+    # inside shade, every layer inside bounce_step) is charged to itself
+    # only, so bounce_step keeps the glue between its stages
     acc = defaultdict(float)
+    inner = []
 
     def timed(name, fn):
         def run(*a, **k):
             torch.cuda.synchronize()
             s = time.perf_counter()
+            inner.append(0.0)
             r = fn(*a, **k)
             torch.cuda.synchronize()
-            acc[name] += time.perf_counter() - s
+            dt = time.perf_counter() - s
+            # bounce_step passes the primary rays' active mask positionally,
+            # the shadow rays none
+            key = "shadow " + name if name == "intersect (K1)" and len(a) == 3 else name
+            acc[key] += dt - inner.pop()
+            if inner:
+                inner[-1] += dt
             return r
         return run
 
@@ -103,8 +131,10 @@ def main(argv) -> int:
         (integrator, "_gather_hit_geometry", "attrs (K2/epilogue)"),
         (integrator.disney, "shade", "shade"),
         (integrator.bg_ops, "eval_background", "background"),
-        (integrator, "bounce_step", "bounce_step"),
+        (integrator, "bounce_step", "bounce glue (masks, throughput, origins)"),
         (renderer.color, "encode_u8", "encode"),
+        (env_light, "sample", "env sample"),
+        (env_light, "eval_pdf", "env eval"),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, name in patches:
@@ -118,12 +148,8 @@ def main(argv) -> int:
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
-    stages = ("intersect (K1)", "attrs (K2/epilogue)", "shade", "background")
-    layers = {k: acc[k] for k in ("raygen", "rng", "encode", *stages)}
-    layers["bounce glue (masks, throughput, origins)"] = acc["bounce_step"] - sum(
-        acc[k] for k in stages)
-    layers["compaction, scatter, spp mean"] = wall_layers - sum(
-        acc[k] for k in ("raygen", "rng", "encode", "bounce_step"))
+    layers = dict(acc)
+    layers["compaction, scatter, spp mean"] = wall_layers - sum(acc.values())
     print(json.dumps({"view": "layers_synchronized", "wall_s": wall_layers,
                       "seconds": {k: round(v, 6) for k, v in layers.items()}}))
 
@@ -154,20 +180,24 @@ def main(argv) -> int:
     with open(os.path.join(out_dir, "torch_profile.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
 
-    # K1 per bounce of the batch: rays, device ms, bound and share
+    # K1 per bounce of the batch (with --nee each bounce's shadow launch
+    # beside its primary one): rays, device ms, bound and share
     kb = rng.fold_in(rng.prng_key(0, dev), b)
-    jitter, _ = renderer._draw_uniforms(kb, cs.BATCH_RAYS, bounces, skip_mat=True)
+    jitter = renderer._draw_uniforms(kb, cs.BATCH_RAYS, bounces, skip_mat=True)[0]
     o, d = camera.generate_rays(scene.camera, w, h, px.repeat_interleave(spp),
                                 py.repeat_interleave(spp), jitter[0], jitter[1])
-    _, _, states = cs.bounce_rays(integrator, scene, o, d, rng.fold_in(kb, 1), bounces)
-    for i, (bo, bd) in enumerate(states):
-        fuse = i == 0
+    _, _, states, shadows = cs.bounce_rays(integrator, scene, o, d, rng.fold_in(kb, 1), bounces,
+                                           nee=nee)
+    launches = [(i, "primary", bo, bd, i == 0) for i, (bo, bd) in enumerate(states)]
+    launches += [(i, "shadow", so, sd, False) for i, (so, sd) in enumerate(shadows)]
+    for i, kind, ro, rd, fuse in sorted(launches, key=lambda x: (x[0], x[1] == "shadow")):
         ms = cs.device_ms(torch, lambda: tc.bvh_traverse(  # noqa: B023
-            bo, bd, scene.triangles, scene.bvh, fuse_attr=fuse), 10, "bvh_traverse")
-        work = bounds.k1_work(scene, bo, bd, epilogue=fuse)
+            ro, rd, scene.triangles, scene.bvh, fuse_attr=fuse), 10, "bvh_traverse")
+        work = bounds.k1_work(scene, ro, rd, epilogue=fuse)
         bd_ = bounds.bound(work)
-        print(json.dumps({"view": "k1_bounce", "gpu": gpu, "bounce": i, "rays": bo.shape[0],
-                          "kernel": "wide" if bo.shape[0] < tc.WIDE_BELOW else "thread",
+        print(json.dumps({"view": "k1_bounce", "gpu": gpu, "bounce": i, "rays_kind": kind,
+                          "rays": ro.shape[0],
+                          "kernel": "wide" if ro.shape[0] < tc.WIDE_BELOW else "thread",
                           "epilogue": fuse, "device_ms": ms, **work, **bd_,
                           "share": bd_["bound_ms"] / ms}))
     return 0
