@@ -48,7 +48,7 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    Before it, the host's time to decode the GLB's 2048^2 albedo texture and
    background.png (PNGs filtered per row like a real encoder's); after it,
    `python -m raytracing_c_tpu_torch` at 64x64 with -D in a subprocess;
-8. the NEE path, this slice's main path: cli.main() in the same directory
+8. the NEE path: cli.main() in the same directory
    at 1920x1080, 16 spp (never cut), 8 bounces, --nee -D -V --save-scene;
    the counters are zeroed just before and read just after: every kernel
    must have run, and K1 more often than in phase 7 (the shadow rays).
@@ -61,7 +61,22 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    K1 against the brute-force one (max abs difference <= LM_TOL); the
    native QOI codec on the phase-4 frame: byte-equal to the pure-Python
    encoder and decoded back (its build at first use, and both encoders,
-   timed apart).
+   timed apart);
+10. multi-device rendering, this slice's main path, one process per rank
+   (raytracing_c_tpu_torch/parallel/): the stand-in goes to the ranks as a scene cache, and
+   `launch.render_scene_cache` renders it through render(mesh=) on (a) one
+   NCCL rank per card (torch.cuda.device_count()) and (b) two gloo ranks on
+   card 0: the flagship frame at phase 4's spp, compacted (wall, rays,
+   Mrays/s; each rank's launch counts, zeroed just before the render and
+   read just after: K1's eight-lane kernel and K2 must have run on every
+   rank, and its one-thread kernel too where a rank's camera launch holds
+   WIDE_BELOW rays or more; the image mean within 2% of phase 4's, the
+   bound of tests/test_sharding.py, since each rank keys its compacted
+   draws apart), then (c) a 256x256 dense render and a 128x128 dense NEE
+   render, each identical to the single-process render with equal ray
+   counts; (d) the stand-in with the SAH splitter: K1 on the phase-2
+   camera rays against the oracle, its device time beside the midpoint
+   tree's, node visits and triangle tests per ray from the host re-walk.
 
 Kernel times: `kernel_ms` is CUDA events around back-to-back calls of the
 wrapper after a warm-up call (20 for K1, 50 for K2 and K3), with the
@@ -78,7 +93,10 @@ bounce1_bound_ms and bounce1_bound_by; bvh_traverse_wide (eight lanes per
 ray) with bounce 2's, and later_ms: [set, rays, ms] for bounces 3-7. Each
 has "shadow": the shadow sets on that kernel (set, rays, picked by the
 wrapper's rule, ms, plain_ms, bound_ms, bound_by). "launches" are phase
-8's (the NEE path), "launches_without_nee" phase 7's.
+8's (the NEE path), "launches_without_nee" phase 7's, "launches_mesh_nccl"
+and "launches_mesh_gloo" each rank's in phase 10's flagship renders (a)
+and (b); bvh_traverse also has phase 10d's sah_ms, sah_midpoint_ms,
+sah_max_abs_err and sah_bound_ms.
 The second-to-last line is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository,
 it exits 2 before printing anything but the reason.
@@ -237,10 +255,11 @@ def standin_parts(np, n=88, tex=2048):
     return arrays, _textures(rng, np, tex, tex // 2), view
 
 
-def procedural_scene(ps, np, torch, device, n=88, tex=2048):
+def procedural_scene(ps, np, torch, device, n=88, tex=2048, sah=None):
     """The helmet.glb stand-in as a port scene on `device`: displaced
     sphere (2 n^2 = 15,488 triangles) on a floor quad, 3 materials,
-    textured PBR, constant sky."""
+    textured PBR, constant sky; `sah` picks the BVH splitter
+    (models/bvh.py:build_bvh)."""
     from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
     (pos, nrm, uv, mat), textures, view = standin_parts(np, n, tex)
@@ -260,7 +279,7 @@ def procedural_scene(ps, np, torch, device, n=88, tex=2048):
     ).with_rows()
     return ps.build_scene(ps.HostMesh(pos, nrm, uv, mat), table, ps.TextureAtlas.pack(textures),
                           ps.Background.constant((0.6, 0.7, 0.9)),
-                          ps.Camera.look(view, STANDIN_FOV_DEG), device=device)
+                          ps.Camera.look(view, STANDIN_FOV_DEG), device=device, sah=sah)
 
 
 def soup_scene(ps, np, device, n=15452):
@@ -708,7 +727,7 @@ def psnr(np, a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
-def compare_k1(torch, tc, label, scene, o, d, fuse, need_hits=True):
+def compare_k1(torch, tc, label, scene, o, d, fuse, need_hits=True, phase="phase2"):
     """K1 with its epilogue and without it against the oracle on these
     rays (tri, t, u, v, and the epilogue's attrs), then timed as the main
     path runs it: fused on camera rays, bare on secondary ones. With
@@ -736,7 +755,7 @@ def compare_k1(torch, tc, label, scene, o, d, fuse, need_hits=True):
     dev_ms = device_ms(torch, launch, 20, "bvh_traverse")
     plain_ms = cuda_ms(torch, lambda: tc.bvh_traverse_plain(o, d, scene.triangles,
                                                             fuse_attr=fuse), 1)
-    print(f"phase2 K1 {label}: rays={o.shape[0]} hit={hit_rate:.4f} "
+    print(f"{phase} K1 {label}: rays={o.shape[0]} hit={hit_rate:.4f} "
           f"fused={fuse} tri_mismatch={bad_tri} max_abs_err={err:.3g} "
           f"dropped_min_inf={dropped_inf} kernel_ms={ms:.4f} device_ms={dev_ms:.4f} "
           f"plain_ms={plain_ms:.2f} {'ok' if ok else 'FAIL'}", flush=True)
@@ -771,6 +790,110 @@ def run_cli(cli, argv, cwd):
     return rc, buf.getvalue()
 
 
+#: phase 10's parity renders (c): (width, height, spp, bounces, nee, batch
+#: pixels before the mesh rounds them to a multiple of its world size)
+PARITY_RENDERS = ((256, 256, 2, 3, False, 16384), (128, 128, 2, 3, True, 16384))
+
+
+def phase10_mesh(np, torch, ps, tc, renderer, serialization, launch, bounds, scene_d, img4,
+                 wall4_s, spp, cam, k1_mid_ms, failures):
+    """Phase 10: multi-device rendering, one process per rank
+    (raytracing_c_tpu_torch/parallel/). The scene goes to the ranks as a
+    scene cache; `launch.render_scene_cache` renders it on (a) one NCCL rank
+    per card and (b) two gloo ranks on card 0: the flagship frame
+    (compacted), then the parity renders of PARITY_RENDERS, each against the
+    single-process render here (dense: bit for bit). Then (d): the stand-in
+    with the SAH splitter, K1 on the phase-2 camera rays against the oracle
+    and timed beside the midpoint tree's. Returns the per-rank launch
+    counts of each world's flagship render and the SAH numbers."""
+    n_cards = torch.cuda.device_count()
+    renders = [dict(width=WIDTH, height=HEIGHT, spp=spp, max_bounces=BOUNCES, compact=True)]
+    renders += [dict(width=w, height=h, spp=sp, max_bounces=b, nee=nee, compact=False,
+                     batch_pixels=bp) for w, h, sp, b, nee, bp in PARITY_RENDERS]
+    refs = {}  # (render index, batch pixels) -> the single-process render here
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        path = os.path.join(tmp, "standin.npz")
+        t0 = time.perf_counter()
+        serialization.save_scene_cache(path, scene_d)
+        print(f"phase10 scene cache for the ranks: {os.path.getsize(path)} B written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()  # the ranks share card 0 with this process
+        launches, walls = {}, {}
+        for label, world, backend, devices in (
+                ("a", n_cards, "nccl", [f"cuda:{k}" for k in range(n_cards)]),
+                ("b", 2, "gloo", ["cuda:0", "cuda:0"])):
+            t0 = time.perf_counter()
+            results = launch.run_ranks(launch.render_scene_cache, world, backend, devices,
+                                       path, renders)
+            call_s = time.perf_counter() - t0
+            img, st, per_rank = results[0]
+            launches[label] = per_rank
+            walls[label] = st.wall_ms / 1e3
+            # one thread per ray runs only launches of WIDE_BELOW rays or more
+            need = ["bvh_traverse_wide", "fetch_attrs"]
+            if BATCH_RAYS // world >= tc.WIDE_BELOW:
+                need.append("bvh_traverse")
+            rel = abs(float(img.mean()) - float(img4.mean())) / float(img4.mean())
+            ok = (all(c[k] > 0 for c in per_rank for k in need) and img.shape == img4.shape
+                  and rel <= 0.02)
+            print(f"phase10{label} {backend} world={world} devices={','.join(devices)} "
+                  f"render {WIDTH}x{HEIGHT} spp={spp} bounces={BOUNCES} compact: "
+                  f"wall_s={st.wall_ms / 1e3:.3f} rays={st.rays_traced} "
+                  f"mrays_per_s={st.mrays_per_sec:.4f} batches={st.batches} "
+                  f"mean={float(img.mean()):.3f} (phase 4 {float(img4.mean()):.3f}, rel "
+                  f"{rel:.5f}, bound 0.02) launches_per_rank={per_rank} needed={need} "
+                  f"call_s={call_s:.1f} (start-up, load, replication and all renders) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"phase 10{label} flagship")
+            for i, (w, h, sp, b, nee, bp) in enumerate(PARITY_RENDERS, start=1):
+                bp_mesh = max(world, bp // world * world)
+                if (i, bp_mesh) not in refs:
+                    refs[i, bp_mesh] = renderer.render(scene_d, w, h, spp=sp, max_bounces=b,
+                                                       nee=nee, compact=False,
+                                                       batch_pixels=bp_mesh)
+                ref, ref_st = refs[i, bp_mesh]
+                got, got_st = results[i][:2]
+                same = bool((got == ref).all()) and got_st.rays_traced == ref_st.rays_traced
+                print(f"phase10c {backend} world={world} {w}x{h} spp={sp} bounces={b} "
+                      f"nee={nee} dense, batch_pixels={bp_mesh}: mesh vs single process "
+                      f"identical={bool((got == ref).all())} rays {got_st.rays_traced} vs "
+                      f"{ref_st.rays_traced} {'ok' if same else 'FAIL'}", flush=True)
+                if not same:
+                    failures.append(f"phase 10c {backend} {w}x{h} nee={nee}")
+        print(f"phase10 flagship walls: phase 4 (one process) {wall4_s:.3f} s, (a) "
+              f"{walls['a']:.3f} s, (b) {walls['b']:.3f} s; (a)/(b) {walls['a'] / walls['b']:.3f}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the SAH splitter on the card
+    t0 = time.perf_counter()
+    scene_sah = procedural_scene(ps, np, torch, scene_d.device, sah=True)
+    build_s = time.perf_counter() - t0
+    cam_o, cam_d = cam
+    ok, err, sah_ms, _, _ = compare_k1(torch, tc, "camera/procedural SAH tree", scene_sah,
+                                       cam_o, cam_d, True, phase="phase10d")
+    mid_ms = device_ms(torch, lambda: tc.bvh_traverse(cam_o, cam_d, scene_d.triangles,
+                                                      scene_d.bvh, fuse_attr=True),
+                       20, "bvh_traverse")
+    walks = {k: bounds.k1_work(sc, cam_o, cam_d, epilogue=True)
+             for k, sc in (("sah", scene_sah), ("midpoint", scene_d))}
+    sah_bound = bounds.bound(walks["sah"])
+    print(f"phase10d SAH tree of the stand-in (built in {build_s:.1f} s with its scene): K1 "
+          f"camera/procedural device_ms={sah_ms:.4f} vs midpoint tree {mid_ms:.4f} (phase 2: "
+          f"{k1_mid_ms:.4f}); node visits per ray {walks['sah']['node_visits_per_ray']:.3f} vs "
+          f"{walks['midpoint']['node_visits_per_ray']:.3f}, triangle tests per ray "
+          f"{walks['sah']['tri_tests_per_ray']:.3f} vs "
+          f"{walks['midpoint']['tri_tests_per_ray']:.3f}; bound_ms={sah_bound['bound_ms']:.4f} "
+          f"({sah_bound['bound_by']}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("phase 10d K1 on the SAH tree")
+    return launches, {"sah_ms": sah_ms, "sah_midpoint_ms": mid_ms, "sah_max_abs_err": err,
+                      "sah_bound_ms": sah_bound["bound_ms"]}
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -787,10 +910,12 @@ def main(argv) -> int:
         from raytracing_c_tpu_torch.io import image_io
         from raytracing_c_tpu_torch.io.gltf_loader import parse_glb
         from raytracing_c_tpu_torch.models import scene as ps
+        from raytracing_c_tpu_torch.models import serialization
         from raytracing_c_tpu_torch.ops import cuda_build
         from raytracing_c_tpu_torch.ops import denoise as dn
         from raytracing_c_tpu_torch.ops import env_light
         from raytracing_c_tpu_torch.ops import traverse_cuda as tc
+        from raytracing_c_tpu_torch.parallel import launch
         from raytracing_c_tpu_torch.render import lightmap, renderer
         from raytracing_c_tpu_torch.utils import bounds
     except ImportError as e:
@@ -1150,6 +1275,12 @@ def main(argv) -> int:
     if not ok:
         failures.append("native QOI")
 
+    # --- phase 10: multi-device rendering, one process per rank ---
+    mesh_launches, sah = phase10_mesh(np, torch, ps, tc, renderer, serialization, launch,
+                                      bounds, scene_d, img, st.wall_ms / 1e3, spp,
+                                      (cam_o, cam_d), k1_ms,
+                                      failures)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", flush=True)
@@ -1158,6 +1289,8 @@ def main(argv) -> int:
     def entry(name, source, replaces, err, ms, plain_ms, b):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches8[name], "launches_without_nee": launches7[name],
+                "launches_mesh_nccl": [c.get(name, 0) for c in mesh_launches["a"]],
+                "launches_mesh_gloo": [c.get(name, 0) for c in mesh_launches["b"]],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "library_ms": None}
 
@@ -1170,7 +1303,7 @@ def main(argv) -> int:
                  k1_bound),
          "bounce1_rays": int(b1_o.shape[0]), "bounce1_ms": runs["bounce1/procedural"][0],
          "bounce1_bound_ms": b1["bound_ms"], "bounce1_bound_by": b1["bound_by"],
-         "shadow": shadow["bvh_traverse"]},
+         "shadow": shadow["bvh_traverse"], **sah},
         {**entry("bvh_traverse_wide", src, k1_pallas, k1_err["bvh_traverse_wide"], b2_ms,
                  b2_plain_ms, k1_bounds["bounce2/procedural"]),
          "rays": int(b2_o.shape[0]),

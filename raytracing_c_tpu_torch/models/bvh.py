@@ -1,18 +1,26 @@
 """Host-side implicit 8-ary BVH construction (numpy).
 
-Counterpart of `raytracing_c_tpu/models/bvh.py` with the reference's
-midpoint splitter (scene.c:203-426), so the port builds the same tree and
-the same leaf-slot map:
+Counterpart of `raytracing_c_tpu/models/bvh.py`, so the port builds the
+same tree and the same leaf-slot map with either splitter:
 
 - complete implicit tree, fan-out 8; node i's children are 8*i + 1 + j
 - depth = smallest d with 8**d >= ceil(n/8), clamped to >= 1
-- a slice splits at `partition_count` (scene.c:235-242) on the axis whose
-  centroid sort minimises the summed child surface areas; ties keep the
-  later axis (the reference's `<=` compare, scene.c:344-360)
+- the reference's midpoint splitter (the default): a slice splits at
+  `partition_count` (scene.c:235-242) on the axis whose centroid sort
+  minimises the summed child surface areas; ties keep the later axis (the
+  reference's `<=` compare, scene.c:344-360)
+- the SAH splitter (`sah=True`, or RAYTPU_BVH_SAH=1 for the default):
+  every multiple of `per_child` is a valid split position (both sides keep
+  splitting at multiples, so a node still ends with <= 8 children); the
+  sweep takes, over the 3 axes, the position of least SA_L*n_L + SA_R*n_R
+  from prefix and suffix boxes of the centroid sort, the later axis on
+  ties. Any valid tree gives the same hits; SAH only moves the cost of a walk
 - per-triangle boxes are padded by +/-EPSILON (aabb_triangle, scene.c:177-188)
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -52,10 +60,19 @@ def partition_count(n_triangles: int, per_child: int) -> int:
     return n
 
 
-def build_bvh(mesh: HostMesh):
-    """Build the implicit BVH. Returns (bvh, slot_map, capacity): slot_map
-    is a (capacity,) int64 array mapping each padded leaf slot to a mesh
-    triangle index (-1 = empty padding slot)."""
+#: the default splitter: the reference's midpoint splitter unless
+#: RAYTPU_BVH_SAH=1 selects the SAH position sweep
+SAH_DEFAULT = os.environ.get("RAYTPU_BVH_SAH", "0") == "1"
+
+
+def build_bvh(mesh: HostMesh, sah: bool | None = None):
+    """Build the implicit BVH with the SAH splitter (sah=True), the
+    reference's midpoint splitter (False) or SAH_DEFAULT's (None).
+    Returns (bvh, slot_map, capacity): slot_map is a (capacity,) int64
+    array mapping each padded leaf slot to a mesh triangle index (-1 =
+    empty padding slot)."""
+    if sah is None:
+        sah = SAH_DEFAULT
     n = mesh.positions.shape[0]
     depth = required_depth(n)
     n_internal = n_internal_nodes(depth)
@@ -72,7 +89,7 @@ def build_bvh(mesh: HostMesh):
         tri_max = pos.max(axis=1) + EPSILON
         order = np.arange(n, dtype=np.int64)
         _build_node(order, 0, n, 0, depth, n_internal, centroids, tri_min,
-                    tri_max, mins, maxs, slot_map)
+                    tri_max, mins, maxs, slot_map, sah)
 
     nodes = np.zeros((n_internal, 128), np.float32)
     nodes[:, : 6 * W] = np.concatenate(
@@ -83,7 +100,7 @@ def build_bvh(mesh: HostMesh):
 
 
 def _build_node(order, lo, hi, index, depth, last_row_offset, centroids,
-                tri_min, tri_max, mins, maxs, slot_map):
+                tri_min, tri_max, mins, maxs, slot_map, sah):
     """Recursive node build (bvh_build, scene.c:311-414), iterative split."""
     if depth == 0:
         block = index - last_row_offset
@@ -103,17 +120,18 @@ def _build_node(order, lo, hi, index, depth, last_row_offset, centroids,
                 finished.append((sl, sh))
             continue
         seg = order[sl:sh]
-        split = partition_count(ln, per_child)
-        best_axis, best_key = 0, np.inf
-        perms = []
-        for axis in range(3):
-            perm = np.argsort(centroids[seg, axis], kind="stable")
-            perms.append(perm)
-            left = seg[perm[:split]]
-            right = seg[perm[split:]]
-            sa = _sa(tri_min[left], tri_max[left]) + _sa(tri_min[right], tri_max[right])
-            if sa <= best_key:
-                best_key, best_axis = sa, axis
+        perms = [np.argsort(centroids[seg, axis], kind="stable") for axis in range(3)]
+        if sah:
+            best_axis, split = _sah_split(seg, perms, ln, per_child, tri_min, tri_max)
+        else:
+            split = partition_count(ln, per_child)
+            best_axis, best_key = 0, np.inf
+            for axis, perm in enumerate(perms):
+                left = seg[perm[:split]]
+                right = seg[perm[split:]]
+                sa = _sa(tri_min[left], tri_max[left]) + _sa(tri_min[right], tri_max[right])
+                if sa <= best_key:
+                    best_key, best_axis = sa, axis
         order[sl:sh] = seg[perms[best_axis]]
         slices.append((sl, sl + split))
         slices.append((sl + split, sh))
@@ -123,7 +141,34 @@ def _build_node(order, lo, hi, index, depth, last_row_offset, centroids,
         mins[index, i] = tri_min[idx].min(axis=0)
         maxs[index, i] = tri_max[idx].max(axis=0)
         _build_node(order, fl, fh, W * index + 1 + i, depth - 1, last_row_offset,
-                    centroids, tri_min, tri_max, mins, maxs, slot_map)
+                    centroids, tri_min, tri_max, mins, maxs, slot_map, sah)
+
+
+def _sah_split(seg, perms, ln, per_child, tri_min, tri_max):
+    """The SAH sweep over one slice of ln > per_child triangles: the
+    (axis, split) of least SA_L*n_L + SA_R*n_R over split positions at the
+    multiples of per_child, from prefix and suffix boxes of each axis's
+    centroid sort; a later axis wins a tie."""
+    best_axis, best_key, split = 0, np.inf, per_child
+    ks = np.arange(1, -(-ln // per_child)) * per_child
+    for axis, perm in enumerate(perms):
+        lo_s = tri_min[seg[perm]]
+        hi_s = tri_max[seg[perm]]
+        pmin = np.minimum.accumulate(lo_s, axis=0)
+        pmax = np.maximum.accumulate(hi_s, axis=0)
+        smin = np.minimum.accumulate(lo_s[::-1], axis=0)[::-1]
+        smax = np.maximum.accumulate(hi_s[::-1], axis=0)[::-1]
+        cost = (_sa_diag(pmax[ks - 1] - pmin[ks - 1]) * ks
+                + _sa_diag(smax[ks] - smin[ks]) * (ln - ks))
+        j = int(np.argmin(cost))
+        if cost[j] <= best_key:
+            best_key, best_axis, split = cost[j], axis, int(ks[j])
+    return best_axis, split
+
+
+def _sa_diag(d):
+    """Surface areas of boxes given their (m, 3) extents."""
+    return 2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0])
 
 
 def _sa(lo, hi):

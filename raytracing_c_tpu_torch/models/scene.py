@@ -457,13 +457,15 @@ def build_scene(
     camera: Camera,
     spheres: Spheres | None = None,
     device="cuda",
+    sah: bool | None = None,
 ) -> Scene:
-    """scene_init (scene.c:416-426): build the BVH and pack the SoA store on
-    the host, then put the scene on `device`."""
+    """scene_init (scene.c:416-426): build the BVH (`sah` picks the splitter,
+    `models/bvh.py:build_bvh`) and pack the SoA store on the host, then put
+    the scene on `device`."""
     from raytracing_c_tpu_torch.models.bvh import build_bvh
 
     dev = resolve_device(device)
-    bvh, slot_map, _capacity = build_bvh(mesh)
+    bvh, slot_map, _capacity = build_bvh(mesh, sah)
     return _with_k1_tables(Scene(
         triangles=pack_triangles(mesh, slot_map),
         bvh=bvh,

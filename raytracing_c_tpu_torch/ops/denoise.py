@@ -109,8 +109,9 @@ def denoise_u8(img: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(img)
     if h == 0 or w == 0:
         return out
-    err = _library().rt_denoise_u8(img.data_ptr(), out.data_ptr(), h, w,
-                                   torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _library().rt_denoise_u8(img.data_ptr(), out.data_ptr(), h, w,
+                                       torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"denoise_u8: CUDA launch failed with error {err}")
     denoise_u8.launches += 1

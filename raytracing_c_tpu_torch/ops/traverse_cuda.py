@@ -9,7 +9,8 @@ Counterpart of `raytracing_c_tpu/ops/traverse_pallas.py`:
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version in this
 module; given CUDA tensors it launches the kernel or raises. There is no
-fallback from a failed build or launch. Each wrapper counts its launches in
+fallback from a failed build or launch. Each wrapper launches on its
+tensors' device, whichever device is current, and counts its launches in
 `<wrapper>.launches`.
 
 K2 and K1's epilogue read the scene's `Triangles.attr_rows`. K1 walks a
@@ -110,10 +111,11 @@ def fetch_attrs(attr_rows: torch.Tensor, tri, u, v) -> torch.Tensor:
     out = torch.empty((16, r), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    err = _library().rt_fetch_attrs(
-        tri.data_ptr(), u.data_ptr(), v.data_ptr(), attr_rows.data_ptr(),
-        out.data_ptr(), r, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _library().rt_fetch_attrs(
+            tri.data_ptr(), u.data_ptr(), v.data_ptr(), attr_rows.data_ptr(),
+            out.data_ptr(), r, torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(err, "fetch_attrs")
     fetch_attrs.launches += 1
     return out
@@ -319,13 +321,14 @@ def bvh_traverse(origin: Vec3, direction: Vec3, triangles, bvh, active=None,
     if r == 0:
         return res
     wide = r < WIDE_BELOW
-    err = _library().rt_bvh_traverse(
-        rays.data_ptr(), r, tables.nodes.data_ptr(), tables.root,
-        tables.tris.data_ptr(), triangles.attr_rows.data_ptr(),
-        out.data_ptr(), tri.data_ptr(),
-        attrs.data_ptr() if fuse_attr else None, int(wide),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _library().rt_bvh_traverse(
+            rays.data_ptr(), r, tables.nodes.data_ptr(), tables.root,
+            tables.tris.data_ptr(), triangles.attr_rows.data_ptr(),
+            out.data_ptr(), tri.data_ptr(),
+            attrs.data_ptr() if fuse_attr else None, int(wide),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(err, "bvh_traverse")
     if wide:
         bvh_traverse.wide_launches += 1

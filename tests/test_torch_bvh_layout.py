@@ -250,6 +250,20 @@ def test_rewalk_finds_the_bruteforce_hits_on_the_soup(soup, kernel):
 
 
 @pytest.mark.parametrize("kernel", ["thread", "wide"])
+def test_rewalk_finds_the_bruteforce_hits_on_a_sah_tree(soup, kernel):
+    """The same walks over the tables of the soup's SAH tree (the sweep's
+    split positions, models/bvh.py) find the oracle's hits."""
+    scene, (o, d) = soup
+    mesh = port_mesh(random_mesh(900, np.random.default_rng(5)))
+    sah = ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
+                         ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default(),
+                         device="cpu", sah=True)
+    assert not torch.equal(sah.bvh.nodes, scene.bvh.nodes)
+    tri = _check_rewalk(sah, o, d, kernel)
+    assert 0.3 < (tri >= 0).mean() < 1.0
+
+
+@pytest.mark.parametrize("kernel", ["thread", "wide"])
 @pytest.mark.parametrize("rays", ["camera", "bounce1"])
 def test_rewalk_finds_the_bruteforce_hits_on_the_standin(standin, rays, kernel):
     scene, cam, bounce1 = standin

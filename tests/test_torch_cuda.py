@@ -46,8 +46,9 @@ def k1_kernel(request, monkeypatch):
     return request.param
 
 
-def _soup_scene(n: int, seed: int, device) -> ps.Scene:
-    """Random triangle soup in [-1, 1]^3 (the shape of tests/helpers.random_mesh)."""
+def _soup_scene(n: int, seed: int, device, sah: bool = False) -> ps.Scene:
+    """Random triangle soup in [-1, 1]^3 (the shape of tests/helpers.random_mesh),
+    its BVH built by the midpoint splitter or, with sah, the SAH sweep."""
     rng = np.random.default_rng(seed)
     pos = (rng.uniform(-1, 1, (n, 1, 3)) + rng.normal(0, 0.12, (n, 3, 3))).astype(np.float32)
     ng = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
@@ -57,7 +58,7 @@ def _soup_scene(n: int, seed: int, device) -> ps.Scene:
                        np.zeros(n, np.int32))
     return ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
                           ps.Background.constant((0.7, 0.8, 1.0)), ps.Camera.default(),
-                          device=device)
+                          device=device, sah=sah)
 
 
 def _rays(n: int, seed: int, device):
@@ -91,6 +92,47 @@ def test_kernels_match_plain(cuda_device, k1_kernel, n_tri, depth):
     attrs = tc.fetch_attrs(ts.triangles.attr_rows, got["tri"], got["u"], got["v"])
     torch.testing.assert_close(attrs, want["attrs"], rtol=0, atol=0)
     assert tc.launch_counts()["fetch_attrs"] == 1
+
+
+def test_sah_tree_matches_plain(cuda_device, k1_kernel):
+    """K1 over the tables of a SAH tree (models/bvh.py, sah=True) finds the
+    oracle's hits, with and without its epilogue."""
+    ts = _soup_scene(15452, 8, cuda_device, sah=True)
+    assert not torch.equal(ts.bvh.nodes, _soup_scene(15452, 8, cuda_device).bvh.nodes)
+    o, d = _rays(4096, 9, cuda_device)
+    got = tc.bvh_traverse(o, d, ts.triangles, ts.bvh, fuse_attr=True)
+    bare = tc.bvh_traverse(o, d, ts.triangles, ts.bvh)
+    want = tc.bvh_traverse_plain(o, d, ts.triangles, fuse_attr=True)
+    torch.cuda.synchronize()
+    for k in ("tri", "t", "u", "v", "attrs"):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+    for k in ("tri", "t", "u", "v"):
+        torch.testing.assert_close(bare[k], want[k], rtol=0, atol=0, msg=k)
+    assert (got["tri"] >= 0).float().mean() > 0.3
+
+
+def test_kernels_on_another_card_than_the_current_one(cuda_device, k1_kernel):
+    """K1, K2 and K3 on tensors on the last card while card 0 is current:
+    each launches on its tensors' card and matches its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    ts = _soup_scene(900, 8, last)
+    o, d = _rays(4096, 9, last)
+    got = tc.bvh_traverse(o, d, ts.triangles, ts.bvh, fuse_attr=True)
+    want = tc.bvh_traverse_plain(o, d, ts.triangles, fuse_attr=True)
+    attrs = tc.fetch_attrs(ts.triangles.attr_rows, got["tri"], got["u"], got["v"])
+    img = torch.from_numpy(chip_smoke.firefly_image(np, 67, 131)[0]).to(last)
+    den = dn.denoise_u8(img)
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == 0
+    for k in ("tri", "t", "u", "v", "attrs"):
+        assert got[k].device == last
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+    torch.testing.assert_close(attrs, want["attrs"], rtol=0, atol=0)
+    torch.testing.assert_close(den, dn.denoise_u8_plain(img), rtol=0, atol=0)
+    assert (got["tri"] >= 0).float().mean() > 0.3
 
 
 def test_far_from_the_origin_matches_plain(cuda_device, k1_kernel):

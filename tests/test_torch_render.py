@@ -110,8 +110,8 @@ def test_render_to_device_frame(scenes):
     assert st_d.rays_traced == st_h.rays_traced
 
 
-def test_render_nee_not_ported(scenes):
-    """render(nee=True), once refused, now runs: on the quad+sphere scene's
+def test_render_nee_casts_shadow_rays(scenes):
+    """render(nee=True) runs: on the quad+sphere scene's
     constant sky it samples the sphere uniformly and casts a shadow ray per
     shaded vertex, so it traces more rays than the same render without
     nee (the NEE images are held against JAX's in test_torch_nee.py)."""
@@ -123,10 +123,11 @@ def test_render_nee_not_ported(scenes):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The port renders end to end (also with NEE), saves and loads a scene
-    cache, bakes a lightmap, round-trips QOI through the native codec, and
-    its CLI loads a model, renders and denoises (-D), without importing
-    jax or the JAX package."""
+    """The port renders end to end (also with NEE, and on two gloo ranks
+    through render(mesh=), which gives the single-process dense image),
+    saves and loads a scene cache, bakes a lightmap, round-trips QOI
+    through the native codec, and its CLI loads a model, renders and
+    denoises (-D), without importing jax or the JAX package."""
     obj = tmp_path / "quad.obj"
     obj.write_text("v -1 -1 0\nv 1 -1 0\nv 1 1 0\nv -1 1 0\nf 1 2 3 4\n")
     png = tmp_path / "out.png"
@@ -150,6 +151,12 @@ def test_port_imports_no_jax(tmp_path):
         f"serialization.save_scene_cache({str(tmp_path / 'c.npz')!r}, s)\n"
         f"s2 = serialization.load_scene_cache({str(tmp_path / 'c.npz')!r}, device='cpu')\n"
         "assert bake_lightmap(s2, 8, 8, samples=1, max_bounces=1).shape == (8, 8, 3)\n"
+        "from raytracing_c_tpu_torch.parallel.launch import render_scene_cache, run_ranks\n"
+        "kw = dict(width=16, height=16, spp=1, max_bounces=2, compact=False)\n"
+        f"[(img_m, st_m, _)] = run_ranks(render_scene_cache, 2, 'gloo', ['cpu', 'cpu'], "
+        f"{str(tmp_path / 'c.npz')!r}, [kw])\n"
+        "img_s, st_s = render(s, **kw)\n"
+        "assert (img_m == img_s).all() and st_m.rays_traced == st_s.rays_traced\n"
         "assert (qoi_decode(qoi_encode(img)) == img).all()\n"
         "from raytracing_c_tpu_torch import cli\n"
         "from raytracing_c_tpu_torch.io.image_io import load_image_rgb_u8\n"

@@ -72,3 +72,72 @@ def test_scene_to_moves_every_tensor():
     assert moved.device == torch.device("cpu")
     assert moved.triangles.v0.x.device.type == "cpu"
     assert moved.bvh.depth == ts.bvh.depth
+
+
+def _sah_meshes():
+    rng = np.random.default_rng(11)
+    return {"soup9": random_mesh(9, rng), "soup200": random_mesh(200, rng),
+            "soup900": random_mesh(900, rng), "soup3000": random_mesh(3000, rng)}
+
+
+@pytest.mark.parametrize("name", ["soup9", "soup200", "soup900", "soup3000"])
+def test_sah_tree_matches_jax(name):
+    """build_bvh(sah=True) builds the JAX package's SAH tree: nodes, slot map
+    and packed leaf rows exact, on soups of depth 1 to 3."""
+    from raytracing_c_tpu.models.scene import pack_triangles
+
+    mesh = _sah_meshes()[name]
+    jb, jmap, jcap = jbvh.build_bvh(mesh, sah=True)
+    tb, tmap, tcap = pbvh.build_bvh(port_mesh(mesh), sah=True)
+    assert jcap == tcap and jb.depth == tb.depth
+    np.testing.assert_array_equal(jmap, tmap)
+    np.testing.assert_array_equal(np.asarray(jb.nodes), tb.nodes.numpy())
+    np.testing.assert_array_equal(np.asarray(pack_triangles(mesh, jmap).leaf_rows),
+                                  ps.pack_triangles(port_mesh(mesh), tmap).leaf_rows.numpy())
+    if name != "soup9":  # the sweep moves split positions off the midpoint
+        assert not np.array_equal(tmap, pbvh.build_bvh(port_mesh(mesh), sah=False)[1])
+
+
+def test_sah_scene_hits_match_the_oracle():
+    """The plain K1 over a SAH scene finds the same mesh triangles at the
+    same t as over the midpoint scene (slot ids mapped back to the mesh)."""
+    from raytracing_c_tpu_torch.ops import traverse_cuda as tc
+
+    from torch_port_helpers import aimed_rays, tvec
+
+    mesh = port_mesh(_sah_meshes()["soup900"])
+    o, d = aimed_rays(1024, np.random.default_rng(2))
+    hits = {}
+    for sah in (True, False):
+        scene = ps.build_scene(mesh, ps.MaterialTable.default(), ps.TextureAtlas.empty(),
+                               ps.Background.constant((0.2, 0.3, 0.4)), ps.Camera.default(),
+                               device="cpu", sah=sah)
+        slot_map = pbvh.build_bvh(mesh, sah=sah)[1]
+        h = tc.bvh_traverse(tvec(o), tvec(d), scene.triangles, scene.bvh)
+        tri = h["tri"].numpy()
+        hits[sah] = (np.where(tri >= 0, slot_map[np.maximum(tri, 0)], -1), h["t"].numpy())
+    np.testing.assert_array_equal(hits[True][0], hits[False][0])
+    np.testing.assert_array_equal(hits[True][1], hits[False][1])
+    assert 0.3 < (hits[True][0] >= 0).mean() < 1.0
+
+
+def test_sah_env_var_selects_the_sah_splitter(monkeypatch):
+    """RAYTPU_BVH_SAH=1, read when the module is imported, makes SAH the
+    default splitter (build_bvh(sah=None))."""
+    import importlib
+
+    mesh = port_mesh(_sah_meshes()["soup900"])
+    try:
+        monkeypatch.setenv("RAYTPU_BVH_SAH", "1")
+        importlib.reload(pbvh)
+        assert pbvh.SAH_DEFAULT is True
+        np.testing.assert_array_equal(pbvh.build_bvh(mesh)[1],
+                                      pbvh.build_bvh(mesh, sah=True)[1])
+        monkeypatch.setenv("RAYTPU_BVH_SAH", "0")
+        importlib.reload(pbvh)
+        assert pbvh.SAH_DEFAULT is False
+        np.testing.assert_array_equal(pbvh.build_bvh(mesh)[1],
+                                      pbvh.build_bvh(mesh, sah=False)[1])
+    finally:
+        monkeypatch.undo()
+        importlib.reload(pbvh)
