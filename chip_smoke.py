@@ -2,6 +2,7 @@
 """Drive the PyTorch + CUDA port (raytracing_c_tpu_torch) once on one GPU.
 
     python3 chip_smoke.py [--save IMAGE.png]
+    python3 chip_smoke.py --flagship-only SPP   (phase 4's render alone)
 
 Phases, one line each or more; any failure exits 1 and prints no result:
 
@@ -76,7 +77,22 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    render, each identical to the single-process render with equal ray
    counts; (d) the stand-in with the SAH splitter: K1 on the phase-2
    camera rays against the oracle, its device time beside the midpoint
-   tree's, node visits and triangle tests per ray from the host re-walk.
+   tree's, node visits and triangle tests per ray from the host re-walk;
+11. the parity gate: the scene of PARITY_SCENE written anew (each file
+   must hash to tests/goldens_torch16/manifest.json's sha256), then every
+   case of PARITY_CASES (the CLI with an env map, -D, --nee, an OBJ with
+   --rr --tonemap aces --nearest, --debug-normals; render(compact=False);
+   bake_lightmap) at 16 spp through the port's own entry points on the
+   card, seed 42, each against the JAX package's render of the same case
+   (tools/make_torch_parity_refs.py, on the CPU): PSNR >= PSNR_MIN, printed
+   beside the manifest's seed-42-vs-seed-43 floor and the share of
+   byte-equal pixels. glb_env and glb_nee are rendered twice and must be
+   byte-identical. The counters are zeroed just before and read just
+   after: both K1 kernels, K2 and K3 must have run.
+
+After phase 4, `chip_smoke.py --flagship-only SPP` renders phase 4's frame
+in a fresh process that has never started a profiler, then once more
+after one profiler window; both walls are printed beside phase 4's.
 
 Kernel times: `kernel_ms` is CUDA events around back-to-back calls of the
 wrapper after a warm-up call (20 for K1, 50 for K2 and K3), with the
@@ -95,8 +111,11 @@ has "shadow": the shadow sets on that kernel (set, rays, picked by the
 wrapper's rule, ms, plain_ms, bound_ms, bound_by). "launches" are phase
 8's (the NEE path), "launches_without_nee" phase 7's, "launches_mesh_nccl"
 and "launches_mesh_gloo" each rank's in phase 10's flagship renders (a)
-and (b); bvh_traverse also has phase 10d's sah_ms, sah_midpoint_ms,
-sah_max_abs_err and sah_bound_ms.
+and (b), "launches_parity" phase 11's; bvh_traverse also has phase 10d's
+sah_ms, sah_midpoint_ms, sah_max_abs_err and sah_bound_ms.
+Before the card's name comes {"parity": {...}}: phase 11's cases (psnr_db,
+floor_db, byte_equal, port_wall_s, jax_wall_s, ok, twice_identical) and
+the fresh-process flagship beside phase 4's wall.
 The second-to-last line is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Without CUDA, or outside the repository,
 it exits 2 before printing anything but the reason.
@@ -535,6 +554,72 @@ def write_env_map(path: str, width: int = 2048, height: int = 1024, seed: int = 
     write_png(path, make_env_map(width, height, seed))
 
 
+# ---------------------------------------------------------------------------
+# The 16-spp parity cases: the JAX package renders their references
+# (tools/make_torch_parity_refs.py), phase 11 holds the port to them
+# ---------------------------------------------------------------------------
+
+#: the references: <case>.png (seed 42) and <case>_alt.png (seed 43; the
+#: lightmap as .npy), and manifest.json
+PARITY_DIR = os.path.join(HERE, "tests", "goldens_torch16")
+PARITY_SEEDS = (42, 43)
+#: the writers' parameters for the parity scene (write_parity_scene)
+PARITY_SCENE = {"n": 88, "tex": 2048, "env_width": 512, "env_height": 256}
+_PARITY_CLI = ["-W", "128", "-H", "128", "-S", "16"]
+#: case -> its entry point and arguments: "cli" runs cli.main(argv + ["--seed",
+#: seed, "-O", out]) in the scene's directory; "render" and "bake_lightmap"
+#: load `model` without an env map (constant sky) and call the function with
+#: `kwargs` and seed=seed
+PARITY_CASES = {
+    "glb_env": {"entry": "cli", "argv": [*_PARITY_CLI, "-B", "8", "--bg", "env.png",
+                                         "standin.glb"]},
+    "glb_env_D": {"entry": "cli", "argv": [*_PARITY_CLI, "-B", "8", "-D", "--bg", "env.png",
+                                           "standin.glb"]},
+    "glb_nee": {"entry": "cli", "argv": [*_PARITY_CLI, "-B", "8", "--nee", "--bg", "env.png",
+                                         "standin.glb"]},
+    "obj_rr_aces_nearest": {"entry": "cli", "argv": [
+        *_PARITY_CLI, "-B", "8", "--rr", "--tonemap", "aces", "--nearest", "--bg", "env.png",
+        "standin.obj"]},
+    "glb_normals": {"entry": "cli", "argv": [*_PARITY_CLI, "-B", "1", "--debug-normals",
+                                             "--no-bg", "standin.glb"]},
+    "glb_dense": {"entry": "render", "model": "standin.glb", "kwargs": {
+        "width": 128, "height": 128, "spp": 16, "max_bounces": 8, "compact": False}},
+    "lightmap": {"entry": "bake_lightmap", "model": "standin.glb", "kwargs": {
+        "width": 64, "height": 64, "samples": 16, "max_bounces": 4}},
+}
+
+
+def write_parity_scene(directory: str) -> dict:
+    """Write the parity scene into `directory` with PARITY_SCENE's
+    parameters: the stand-in as standin.glb and as standin.obj + .mtl + PNG
+    textures, and a 512x256 equirect env.png. Returns {file: sha256}."""
+    import hashlib
+
+    p = PARITY_SCENE
+    write_glb(os.path.join(directory, "standin.glb"), p["n"], p["tex"])
+    write_obj_mtl(directory, p["n"], p["tex"])
+    write_env_map(os.path.join(directory, "env.png"), p["env_width"], p["env_height"])
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def parity_file(case: str, seed: int) -> str:
+    """The reference's file name for this case and seed."""
+    ext = ".npy" if PARITY_CASES[case]["entry"] == "bake_lightmap" else ".png"
+    return case + ("" if seed == PARITY_SEEDS[0] else "_alt") + ext
+
+
+def parity_psnr(np, got, ref) -> float:
+    """PSNR in dB: u8 images against a peak of 255, a float lightmap
+    against the reference's maximum."""
+    peak = 255.0 if ref.dtype == np.uint8 else float(ref.max())
+    mse = np.mean((got.astype(np.float64) - ref.astype(np.float64)) ** 2)
+    return math.inf if mse == 0 else 10.0 * math.log10(peak**2 / mse)
+
+
 def firefly_image(np, h: int, w: int, seed: int = 6):
     """A smooth gradient with 2 u8 of noise and about one isolated white
     firefly per 2,000 pixels. Returns (image (h, w, 3) u8, firefly mask)."""
@@ -777,17 +862,43 @@ def num(pattern, text) -> float:
     return float(m.group(1)) if m else float("nan")
 
 
-def run_cli(cli, argv, cwd):
-    """cli.main(argv) in-process from `cwd`; returns (exit code, stdout)."""
+def run_cli(cli, argv, cwd, **kw):
+    """cli.main(argv, **kw) in-process from `cwd`; returns (exit code,
+    stdout)."""
     buf = io.StringIO()
     old = os.getcwd()
     os.chdir(cwd)
     try:
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
+            rc = cli.main(argv, **kw)
     finally:
         os.chdir(old)
     return rc, buf.getvalue()
+
+
+def run_parity_case(case: str, scene_dir: str, seed: int, out_dir: str, device="cuda"):
+    """Render a PARITY_CASES case through the port's own entry point on
+    `device`: the CLI in `scene_dir` (its output decoded by the port's PNG
+    codec), or render() / bake_lightmap() of the model loaded without an env
+    map. Returns the u8 image or the float32 lightmap."""
+    from raytracing_c_tpu_torch import cli
+    from raytracing_c_tpu_torch.io import image_io
+    from raytracing_c_tpu_torch.io.loader import load_scene
+    from raytracing_c_tpu_torch.render import lightmap, renderer
+
+    spec = PARITY_CASES[case]
+    if spec["entry"] == "cli":
+        out = os.path.join(out_dir, parity_file(case, seed))
+        rc, text = run_cli(cli, [*spec["argv"], "--seed", str(seed), "-O", out], scene_dir,
+                           device=device)
+        if rc != 0:
+            raise RuntimeError(f"parity case {case}: the CLI exited {rc}\n{text[-2000:]}")
+        return image_io.load_image_rgb_u8(out)
+    scene = load_scene(os.path.join(scene_dir, spec["model"]), background_path=None,
+                       warn=lambda *a, **k: None, device=device)
+    if spec["entry"] == "render":
+        return renderer.render(scene, seed=seed, **spec["kwargs"])[0]
+    return lightmap.bake_lightmap(scene, seed=seed, **spec["kwargs"])
 
 
 #: phase 10's parity renders (c): (width, height, spp, bounces, nee, batch
@@ -894,6 +1005,126 @@ def phase10_mesh(np, torch, ps, tc, renderer, serialization, launch, bounds, sce
                       "sah_bound_ms": sah_bound["bound_ms"]}
 
 
+#: phase 11's cases rendered twice, which must give the same bytes
+PARITY_TWICE = ("glb_env", "glb_nee")
+
+
+def _db(x: float):
+    return round(x, 4) if math.isfinite(x) else "inf"
+
+
+def phase11_parity(np, reset_counts, counts, failures, device="cuda"):
+    """Phase 11, the parity gate: every PARITY_CASES case rendered through
+    the port's own entry point on `device` (seed 42) against the JAX
+    package's reference (tests/goldens_torch16/, made by
+    tools/make_torch_parity_refs.py): PSNR >= PSNR_MIN, with the seed-43
+    floor and the share of byte-equal pixels beside it. The scene files
+    are written anew and must hash to the manifest's sha256, and each case
+    must be the manifest's; the PARITY_TWICE cases are rendered again and
+    must be byte-identical. The launch counters are zeroed just before and
+    read just after. Returns the {"parity": ...} record and the counts."""
+    from raytracing_c_tpu_torch.io import image_io
+
+    with open(os.path.join(PARITY_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    seed = PARITY_SEEDS[0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+    try:
+        scene_dir, out_dir = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
+        os.makedirs(scene_dir)
+        os.makedirs(out_dir)
+        sha = write_parity_scene(scene_dir)
+        want = manifest["scene"]
+        same_scene = sha == want["sha256"] and PARITY_SCENE == want["writers"]
+        print(f"phase11 parity scene {PARITY_SCENE}: {len(sha)} files, sha256 as the "
+              f"manifest's={same_scene} {'ok' if same_scene else 'FAIL'}", flush=True)
+        if not same_scene:
+            failures.append("phase 11 parity scene")
+            return None, None
+        cases = {}
+        reset_counts()
+        for case, spec in PARITY_CASES.items():
+            ref_meta = manifest["cases"].get(case, {})
+            defined = {k: ref_meta.get(k) for k in spec} == spec
+            path = os.path.join(PARITY_DIR, parity_file(case, seed))
+            ref = np.load(path) if path.endswith(".npy") else image_io.load_image_rgb_u8(path)
+            t0 = time.perf_counter()
+            got = run_parity_case(case, scene_dir, seed, out_dir, device)
+            wall = time.perf_counter() - t0
+            shaped = got.shape == ref.shape and got.dtype == ref.dtype
+            p = parity_psnr(np, got, ref) if shaped else -math.inf
+            equal = float((got == ref).all(-1).mean()) if shaped else 0.0
+            ok = defined and shaped and p >= PSNR_MIN
+            cases[case] = {"psnr_db": _db(p), "floor_db": ref_meta.get("floor_db"),
+                           "byte_equal": round(equal, 6), "port_wall_s": round(wall, 3),
+                           "jax_wall_s": ref_meta.get("jax_wall_s", [None])[0], "ok": ok}
+            print(f"phase11 parity {case} ({spec['entry']}) {'x'.join(map(str, got.shape))}: "
+                  f"PSNR={p:.2f} dB vs the JAX ref (bound {PSNR_MIN:g}; seed-43 floor "
+                  f"{ref_meta.get('floor_db')} dB) byte_equal={equal:.4f} wall_s={wall:.2f} "
+                  f"(JAX on the CPU {cases[case]['jax_wall_s']} s) case_as_manifest={defined} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"phase 11 parity {case}")
+            if case in PARITY_TWICE:
+                again = run_parity_case(case, scene_dir, seed, out_dir, device)
+                same = again.shape == got.shape and bool((again == got).all())
+                cases[case]["twice_identical"] = same
+                print(f"phase11 parity {case} rendered twice: byte-identical={same} "
+                      f"{'ok' if same else 'FAIL'}", flush=True)
+                if not same:
+                    failures.append(f"phase 11 determinism {case}")
+        launches = counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ran = all(v > 0 for v in launches.values())
+    print(f"phase11 launches={launches} every kernel ran={ran} {'ok' if ran else 'FAIL'}",
+          flush=True)
+    if not ran:
+        failures.append("phase 11 launches")
+    return {"bound_db": PSNR_MIN, "seed": seed, "cases": cases, "launches": launches}, launches
+
+
+def fresh_flagship(spp: int) -> dict:
+    """The flagship render() (phase 4's frame, warm-up and all) in a fresh
+    Python process, first with no profiler ever started, then again after
+    one profiler window like device_ms's: `chip_smoke.py --flagship-only
+    SPP`. Returns its {"flagship": ...} record and the process's own
+    wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--flagship-only",
+                           str(spp)], cwd=HERE, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--flagship-only exited {proc.returncode}\n{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])["flagship"]
+    rec["process_s"] = round(time.perf_counter() - t0, 3)
+    return rec
+
+
+def flagship_only(np, torch, spp: int) -> int:
+    """--flagship-only: phase 4's render in this process alone (scene
+    build, a 2-batch warm-up, then the frame), then one torch.profiler
+    window around a single launch, as device_ms opens, and the frame
+    again; prints one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_c_tpu_torch.models import scene as ps
+    from raytracing_c_tpu_torch.render import renderer
+
+    scene_d = procedural_scene(ps, np, torch, torch.device("cuda", 0))
+    renderer.render(scene_d, WIDTH, HEIGHT, spp=spp, max_bounces=BOUNCES, limit_batches=2)
+    frame = lambda: renderer.render(scene_d, WIDTH, HEIGHT, spp=spp,  # noqa: E731
+                                    max_bounces=BOUNCES, seed=0, method="auto")
+    img, st = frame()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1024, device="cuda").sum()
+        torch.cuda.synchronize()
+    _, after = frame()
+    print(json.dumps({"flagship": {"wall_s": st.wall_ms / 1e3, "rays": st.rays_traced,
+                                   "mrays_per_s": st.mrays_per_sec, "mean": float(img.mean()),
+                                   "wall_after_profiler_s": after.wall_ms / 1e3}}))
+    return 0
+
+
 def main(argv) -> int:
     try:
         import numpy as np
@@ -921,6 +1152,8 @@ def main(argv) -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
+    if "--flagship-only" in argv:
+        return flagship_only(np, torch, int(argv[argv.index("--flagship-only") + 1]))
     save = argv[argv.index("--save") + 1] if "--save" in argv else None
 
     def reset_counts():
@@ -1077,6 +1310,18 @@ def main(argv) -> int:
         failures.append("render path")
     if save:
         image_io.write_png(save, img)
+    fresh = fresh_flagship(spp)
+    rel = abs(fresh["mean"] - float(img.mean())) / float(img.mean())
+    ok = fresh["rays"] > 0 and rel <= 0.02
+    print(f"phase4 fresh process (chip_smoke.py --flagship-only {spp}, no profiler ever "
+          f"started; scene build and warm-up as here): wall_s={fresh['wall_s']:.3f} "
+          f"rays={fresh['rays']} mrays_per_s={fresh['mrays_per_s']:.4f} beside this process's "
+          f"wall_s={st.wall_ms / 1e3:.3f} (after phases 2-3 profiled); ratio "
+          f"{st.wall_ms / 1e3 / fresh['wall_s']:.3f}; the fresh process again after one "
+          f"profiler window: wall_s={fresh['wall_after_profiler_s']:.3f}; mean rel {rel:.2g} "
+          f"process_s={fresh['process_s']:.1f} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("phase 4 fresh process")
 
     # --- phase 5: kernel path against the brute-force oracle ---
     kw = dict(spp=4, max_bounces=BOUNCES, seed=3)
@@ -1281,6 +1526,9 @@ def main(argv) -> int:
                                       (cam_o, cam_d), k1_ms,
                                       failures)
 
+    # --- phase 11: the parity gate against the JAX package's references ---
+    parity, launches11 = phase11_parity(np, reset_counts, counts, failures)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", flush=True)
@@ -1291,6 +1539,7 @@ def main(argv) -> int:
                 "launches": launches8[name], "launches_without_nee": launches7[name],
                 "launches_mesh_nccl": [c.get(name, 0) for c in mesh_launches["a"]],
                 "launches_mesh_gloo": [c.get(name, 0) for c in mesh_launches["b"]],
+                "launches_parity": launches11[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "library_ms": None}
 
@@ -1315,6 +1564,9 @@ def main(argv) -> int:
               "raytracing_c_tpu/ops/denoise_pallas.py:98", k3_err, k3_ms, k3_plain_ms,
               k3_bound),
     ]
+    print(json.dumps({"parity": {"gpu": gpu, **parity,
+                                 "flagship_fresh_process": fresh,
+                                 "flagship_in_process_wall_s": st.wall_ms / 1e3}}))
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

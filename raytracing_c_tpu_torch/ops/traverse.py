@@ -5,7 +5,7 @@ Counterpart of `raytracing_c_tpu/ops/traverse.py:343,625`. Methods of
 
 | port      | JAX package                         | what runs                          |
 |-----------|-------------------------------------|------------------------------------|
-| `"bvh"`   | `"pallas_fused"` / `"pallas"`       | K1 `traverse_cuda.bvh_traverse`; with `fuse_attr` its epilogue interpolates the winner's attributes (pallas_fused), without it `_gather_hit_geometry` calls K2 (pallas) |
+| `"bvh"`   | `"pallas_fused"` / `"pallas"`       | K1 `traverse_cuda.bvh_traverse`; with `fuse_attr` its epilogue interpolates the winner's attributes (pallas_fused), without it `_gather_hit_geometry` calls K2 (pallas); on CPU tensors the wrapper runs `intersect_bvh_culled` |
 | `"brute"` | `"brute"`                           | `intersect_bruteforce_chunked`     |
 
 K1 is exact by construction (an ordered stack traversal), so the JAX
@@ -18,10 +18,14 @@ from __future__ import annotations
 
 import torch
 
+from raytracing_c_tpu_torch import BVH_WIDTH as W
+from raytracing_c_tpu_torch import EPSILON
 from raytracing_c_tpu_torch.ops import intersect, traverse_cuda
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 INF = float("inf")
+#: rays per pass of intersect_bvh_culled, which bounds its (ray, node) pairs
+CULLED_RAY_CHUNK = 32768
 
 
 def intersect_bruteforce_chunked(origin: Vec3, direction: Vec3, triangles,
@@ -64,6 +68,67 @@ def intersect_bruteforce_chunked(origin: Vec3, direction: Vec3, triangles,
     return {
         "t": torch.where(hit, best_t, INF),
         "tri": torch.where(hit, best_tri, -1),
+        "u": torch.where(hit, best_u, 0.0),
+        "v": torch.where(hit, best_v, 0.0),
+    }
+
+
+def intersect_bvh_culled(origin: Vec3, direction: Vec3, triangles, bvh, active=None,
+                        t_max=None):
+    """K1's function on the host's terms: the tree walked level by level,
+    keeping every child whose box the ray's slab test (`aabb_slab`, from
+    t = EPSILON on) does not reject, with no order and no cap, then every
+    slot of the leaves reached through Moller-Trumbore, as the brute-force
+    oracle computes each test. The nearest hit wins, ties to the lowest
+    triangle id; only hits closer than t_max count; misses and inactive
+    lanes return t = +inf, tri = -1, u = v = 0. It equals
+    `intersect_bruteforce_chunked` wherever each hit lies inside its
+    leaf's padded box, as it does for K1 and the JAX package's traversals,
+    and costs a few leaves per ray instead of every triangle. Rays go
+    CULLED_RAY_CHUNK at a time."""
+    r = origin.shape[0]
+    dev = origin.x.device
+    n_internal = bvh.n_internal
+    boxes = bvh.nodes[:, :6 * W].reshape(n_internal, 6, W)
+    inv = Vec3(1.0 / direction.x, 1.0 / direction.y, 1.0 / direction.z)
+    lane = torch.arange(W, device=dev)
+    best_t = torch.full((r,), INF, device=dev)
+    best_tri = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros((r,), device=dev)
+    best_v = torch.zeros((r,), device=dev)
+    lanes = torch.arange(r, device=dev) if active is None else torch.nonzero(active).squeeze(1)
+    for c0 in range(0, lanes.numel(), CULLED_RAY_CHUNK):
+        ray = lanes[c0:c0 + CULLED_RAY_CHUNK]
+        node = torch.zeros_like(ray)
+        for _ in range(bvh.depth):
+            b = boxes[node]  # (P, 6, 8)
+            take = lambda a: a[ray, None]  # noqa: E731
+            d = intersect.aabb_slab(origin.map(take), inv.map(take),
+                                    Vec3(b[:, 0], b[:, 1], b[:, 2]),
+                                    Vec3(b[:, 3], b[:, 4], b[:, 5]), EPSILON, INF)
+            p, j = torch.nonzero(torch.isfinite(d), as_tuple=True)
+            ray, node = ray[p], W * node[p] + 1 + j
+        slot = ((node - n_internal)[:, None] * W + lane).reshape(-1)
+        ray = ray[:, None].expand(-1, W).reshape(-1)
+        tri = lambda a: a[slot]  # noqa: E731
+        t, u, v = intersect.moller_trumbore(
+            origin.map(lambda a: a[ray]), direction.map(lambda a: a[ray]),
+            triangles.v0.map(tri), triangles.e1.map(tri), triangles.e2.map(tri))
+        near = best_t.scatter_reduce(0, ray, t, "amin")
+        tie = torch.isfinite(t) & (t == near[ray])
+        first = torch.full_like(best_tri, triangles.capacity).scatter_reduce(
+            0, ray[tie], slot[tie], "amin")
+        win = tie & (slot == first[ray])
+        best_t[ray[win]] = t[win]
+        best_tri[ray[win]] = slot[win]
+        best_u[ray[win]] = u[win]
+        best_v[ray[win]] = v[win]
+    hit = torch.isfinite(best_t)
+    if t_max is not None:
+        hit &= best_t < t_max
+    return {
+        "t": torch.where(hit, best_t, INF),
+        "tri": torch.where(hit, best_tri, -1).to(torch.int32),
         "u": torch.where(hit, best_u, 0.0),
         "v": torch.where(hit, best_v, 0.0),
     }

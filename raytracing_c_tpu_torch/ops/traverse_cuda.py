@@ -8,7 +8,8 @@ Counterpart of `raytracing_c_tpu/ops/traverse_pallas.py`:
 | K2 `fetch_attrs_kernel`   | `fetch_attrs`  | `fetch_attrs` -> `_attr_kernel`                    |
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version in this
-module; given CUDA tensors it launches the kernel or raises. There is no
+module (K1's walks the tree with `ops/traverse.py:intersect_bvh_culled`);
+given CUDA tensors it launches the kernel or raises. There is no
 fallback from a failed build or launch. Each wrapper launches on its
 tensors' device, whichever device is current, and counts its launches in
 `<wrapper>.launches`.
@@ -265,13 +266,19 @@ def k1_tables(bvh, triangles) -> K1Tables:
 
 
 def bvh_traverse_plain(origin: Vec3, direction: Vec3, triangles, active=None,
-                       t_max=None, fuse_attr: bool = False) -> dict:
-    """Plain version of K1: the chunked brute-force oracle (nearest hit,
-    ties to the lowest triangle id, only hits closer than t_max), an
-    all-+inf dropped_min, and K2's plain version for the fused attrs."""
-    from raytracing_c_tpu_torch.ops.traverse import intersect_bruteforce_chunked
+                       t_max=None, fuse_attr: bool = False, bvh=None) -> dict:
+    """Plain version of K1: the nearest hit, ties to the lowest triangle
+    id, only hits closer than t_max, an all-+inf dropped_min, and K2's
+    plain version for the fused attrs. Without `bvh` the hits come from the
+    chunked brute-force oracle; with it from `intersect_bvh_culled`, the
+    same tests over only the leaves whose boxes each ray enters (what the
+    wrapper runs on the CPU: the oracle tests every triangle)."""
+    from raytracing_c_tpu_torch.ops import traverse
 
-    hit = intersect_bruteforce_chunked(origin, direction, triangles, active, t_max)
+    if bvh is None:
+        hit = traverse.intersect_bruteforce_chunked(origin, direction, triangles, active, t_max)
+    else:
+        hit = traverse.intersect_bvh_culled(origin, direction, triangles, bvh, active, t_max)
     hit["dropped_min"] = torch.full_like(hit["t"], INF)
     if fuse_attr:
         hit["attrs"] = fetch_attrs_plain(triangles.attr_rows, hit["tri"], hit["u"], hit["v"])
@@ -292,7 +299,7 @@ def bvh_traverse(origin: Vec3, direction: Vec3, triangles, bvh, active=None,
     """
     dev = origin.x.device
     if dev.type == "cpu":
-        return bvh_traverse_plain(origin, direction, triangles, active, t_max, fuse_attr)
+        return bvh_traverse_plain(origin, direction, triangles, active, t_max, fuse_attr, bvh)
     if dev.type != "cuda":
         raise ValueError(f"bvh_traverse: unsupported device {dev}")
     if not 1 <= bvh.depth <= MAX_DEPTH:

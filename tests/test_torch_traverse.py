@@ -223,3 +223,63 @@ def test_k1_walk_counts_a_triangle_test_where_it_leaves(corners, want):
     assert walk["tri_tests"].tolist() == [1, 1]
     assert walk["tri_ops"].tolist() == want
     assert np.isfinite(walk["t"]).tolist() == [w == 52 for w in want]
+
+
+def _assert_same_hits(want, got):
+    for k in ("t", "u", "v", "tri"):
+        np.testing.assert_array_equal(want[k].numpy(), got[k].numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("ray_chunk", [32768, 100])
+def test_culled_walk_equals_the_oracle(soup, ray_chunk, monkeypatch):
+    """intersect_bvh_culled, which the K1 wrapper's plain version runs on
+    the CPU, gives the brute-force oracle's hits bit for bit: all rays
+    (axis-parallel ones too), inactive lanes and t_max, over one chunk of
+    rays or many."""
+    monkeypatch.setattr(ttrav, "CULLED_RAY_CHUNK", ray_chunk)
+    _, ts, o, d = soup
+    tris, bvh = ts.triangles, ts.bvh
+    want = ttrav.intersect_bruteforce_chunked(tvec(o), tvec(d), tris)
+    got = ttrav.intersect_bvh_culled(tvec(o), tvec(d), tris, bvh)
+    _assert_same_hits(want, got)
+    assert got["tri"].dtype == torch.int32 and 0.3 < float((got["tri"] >= 0).float().mean())
+    active = torch.arange(1024) % 3 != 0
+    t_max = torch.where(torch.arange(1024) % 2 == 0, want["t"], torch.tensor(float("inf")))
+    _assert_same_hits(
+        ttrav.intersect_bruteforce_chunked(tvec(o), tvec(d), tris, active, t_max),
+        ttrav.intersect_bvh_culled(tvec(o), tvec(d), tris, bvh, active, t_max))
+
+
+def test_culled_walk_equals_the_oracle_on_the_standin():
+    """The same on chip_smoke's helmet.glb stand-in (15,490 triangles, a
+    depth-4 tree, a floor quad far larger than its triangles): camera rays
+    through the image and random rays at the sphere."""
+    import chip_smoke
+    from raytracing_c_tpu_torch.models import scene as ps
+    from raytracing_c_tpu_torch.render import camera
+    from raytracing_c_tpu_torch.utils.vec3 import Vec3
+
+    sc = chip_smoke.procedural_scene(ps, np, torch, "cpu", tex=16)
+    rng = np.random.default_rng(5)
+    px = torch.from_numpy(rng.integers(0, 256, 800).astype(np.int32))
+    py = torch.from_numpy(rng.integers(0, 256, 800).astype(np.int32))
+    jit = torch.from_numpy(rng.uniform(0, 1, (2, 800)).astype(np.float32))
+    rays = [camera.generate_rays(sc.camera, 256, 256, px, py, jit[0], jit[1]),
+            chip_smoke.random_rays(800, 2, "cpu", np, torch, Vec3)]
+    for o, d in rays:
+        want = ttrav.intersect_bruteforce_chunked(o, d, sc.triangles)
+        _assert_same_hits(want, ttrav.intersect_bvh_culled(o, d, sc.triangles, sc.bvh))
+        assert float((want["tri"] >= 0).float().mean()) > 0.3
+
+
+def test_plain_k1_with_a_tree_equals_the_oracle(soup):
+    """bvh_traverse_plain(..., bvh=) (the wrapper's CPU path) and without
+    it (the oracle the card compares K1 with) return the same dict."""
+    _, ts, o, d = soup
+    want = tc.bvh_traverse_plain(tvec(o), tvec(d), ts.triangles, fuse_attr=True)
+    got = tc.bvh_traverse_plain(tvec(o), tvec(d), ts.triangles, fuse_attr=True, bvh=ts.bvh)
+    wrapped = tc.bvh_traverse(tvec(o), tvec(d), ts.triangles, ts.bvh, fuse_attr=True)
+    assert set(got) == set(want) == set(wrapped)
+    for k in want:
+        np.testing.assert_array_equal(want[k].numpy(), got[k].numpy(), err_msg=k)
+        np.testing.assert_array_equal(want[k].numpy(), wrapped[k].numpy(), err_msg=k)
