@@ -88,7 +88,21 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    beside the manifest's seed-42-vs-seed-43 floor and the share of
    byte-equal pixels. glb_env and glb_nee are rendered twice and must be
    byte-identical. The counters are zeroed just before and read just
-   after: both K1 kernels, K2 and K3 must have run.
+   after: both K1 kernels, K2 and K3 must have run;
+12. the BVH inspector (raytracing_c_tpu_torch/tools/bvh_viz.py) on the
+   stand-in built on the card: (a) its OBJ dump, byte-identical to the
+   dump of the same mesh built on the CPU, with each level's box count
+   that of the node rows' non-zero lanes; (b) overlay_levels at 512x512,
+   which renders once through render() (spp 4, 3 bounces, seed 0: four
+   batches of 262,144 camera rays, so both K1 kernels and K2 run; the
+   counters are zeroed just before and read just after) and writes a
+   PNG per level: each decodes through the port's codec, holds the
+   level's colour on its wireframe pixels and equals a direct render()
+   elsewhere, byte for byte; (c) the interactive view's 512x512
+   snapshot, lit; (d) `python -m
+   raytracing_c_tpu_torch.tools.bvh_viz standin.glb out.obj` in a
+   subprocess on the card, which must exit 0 and print depth=4. Prints
+   the phase's wall time.
 
 After phase 4, `chip_smoke.py --flagship-only SPP` renders phase 4's frame
 in a fresh process that has never started a profiler, then once more
@@ -111,8 +125,9 @@ has "shadow": the shadow sets on that kernel (set, rays, picked by the
 wrapper's rule, ms, plain_ms, bound_ms, bound_by). "launches" are phase
 8's (the NEE path), "launches_without_nee" phase 7's, "launches_mesh_nccl"
 and "launches_mesh_gloo" each rank's in phase 10's flagship renders (a)
-and (b), "launches_parity" phase 11's; bvh_traverse also has phase 10d's
-sah_ms, sah_midpoint_ms, sah_max_abs_err and sah_bound_ms.
+and (b), "launches_parity" phase 11's, "launches_viz" phase 12's
+overlay; bvh_traverse also has phase 10d's sah_ms, sah_midpoint_ms,
+sah_max_abs_err and sah_bound_ms.
 Before the card's name comes {"parity": {...}}: phase 11's cases (psnr_db,
 floor_db, byte_equal, port_wall_s, jax_wall_s, ok, twice_identical) and
 the fresh-process flagship beside phase 4's wall.
@@ -1084,6 +1099,112 @@ def phase11_parity(np, reset_counts, counts, failures, device="cuda"):
     return {"bound_db": PSNR_MIN, "seed": seed, "cases": cases, "launches": launches}, launches
 
 
+def phase12_bvh_viz(np, torch, ps, scene, reset_counts, counts, failures, n=88, size=512):
+    """Phase 12, the BVH inspector (raytracing_c_tpu_torch/tools/bvh_viz.py)
+    on `scene`, the stand-in of n x n quads on its device: (a) the OBJ dump
+    byte-identical to the dump of the same mesh built on the CPU, its level
+    counts those of the node rows' non-zero lanes; (b) overlay_levels at
+    size x size, the counters zeroed just before and read just after (both
+    K1 kernels and K2 must have run), each level PNG decoded by the port's
+    codec and equal to a direct render() outside its wireframe pixels,
+    which hold the level's colour; (c) the interactive view's snapshot; (d)
+    `python -m raytracing_c_tpu_torch.tools.bvh_viz standin.glb out.obj` in
+    a subprocess (on the GPU, as the module always runs). Returns the
+    overlay's launch counts."""
+    from raytracing_c_tpu_torch.io import image_io
+    from raytracing_c_tpu_torch.render import renderer
+    from raytracing_c_tpu_torch.tools import bvh_viz
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bvh_viz_")
+    try:
+        # (a) the dump, against the CPU build's and the node rows
+        t0 = time.perf_counter()
+        stats = bvh_viz.dump_bvh_obj(scene, os.path.join(tmp, "dev.obj"))
+        dump_s = time.perf_counter() - t0
+        bvh_viz.dump_bvh_obj(procedural_scene(ps, np, torch, "cpu", n=n, tex=64),
+                             os.path.join(tmp, "cpu.obj"))
+        with open(os.path.join(tmp, "dev.obj"), "rb") as f, \
+                open(os.path.join(tmp, "cpu.obj"), "rb") as g:
+            same = f.read() == g.read()
+        lanes = (scene.bvh.nodes.cpu().numpy()[:, :48].reshape(-1, 6, 8) != 0).any(1)
+        first = [(8 ** d - 1) // 7 for d in range(scene.bvh.depth + 1)]
+        rows = {d: int(lanes[first[d]:first[d + 1]].sum()) for d in range(scene.bvh.depth)}
+        ok_a = same and stats == rows
+        print(f"phase12 dump: depth={scene.bvh.depth} boxes per level {stats} (node rows' "
+              f"non-zero lanes {rows}) in {dump_s:.3f} s; byte-identical to the CPU build's "
+              f"dump={same} {'ok' if ok_a else 'FAIL'}", flush=True)
+        if not ok_a:
+            failures.append("phase 12 dump")
+
+        # (b) the overlay through the render path, against a direct render
+        prefix = os.path.join(tmp, "ov")
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            bvh_viz.overlay_levels(scene, prefix, size)
+        overlay_s = time.perf_counter() - t0
+        launches = counts()
+        ran = all(launches[k] > 0 for k in ("bvh_traverse", "bvh_traverse_wide", "fetch_attrs"))
+        print(f"phase12 overlay {size}x{size}: wall_s={overlay_s:.3f} launches={launches} "
+              f"K1 (both kernels) and K2 ran={ran} {'ok' if ran else 'FAIL'}", flush=True)
+        if not ran:
+            failures.append("phase 12 launches")
+        ref = renderer.render(scene, size, size, spp=4, max_bounces=3, seed=0)[0]
+        said = buf.getvalue().splitlines()
+        ok_b = len(said) == scene.bvh.depth
+        for d, (segs, n_boxes) in enumerate(bvh_viz._overlay_segments(scene, size)):
+            path = f"{prefix}_level{d}.png"
+            with open(path, "rb") as f:
+                img = image_io.decode_png(f.read())
+            mask = np.zeros((size, size), bool)
+            mask[bvh_viz._line_pixels(segs, size, size)] = True
+            color = bvh_viz.LEVEL_COLORS[d % len(bvh_viz.LEVEL_COLORS)]
+            ok = (img.shape == ref.shape and bool((img[~mask] == ref[~mask]).all())
+                  and bool((img[mask] == color).all())
+                  and said[d:d + 1] == [f"{path}: {n_boxes} boxes"])
+            ok_b &= ok
+            print(f"phase12 overlay level {d}: {n_boxes} boxes, {int(mask.sum())} wireframe "
+                  f"pixels of colour {color}; the other {int((~mask).sum())} equal a direct "
+                  f"render() {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok_b:
+            failures.append("phase 12 overlay")
+
+        # (c) the interactive view's headless snapshot
+        snap = os.path.join(tmp, "snap.png")
+        with contextlib.redirect_stdout(io.StringIO()):
+            bvh_viz.interactive(scene, snapshot=snap)
+        with open(snap, "rb") as f:
+            img = image_io.decode_png(f.read())
+        lit = float((img > 0).mean())
+        ok_c = img.shape == (512, 512, 3) and lit > 0.001
+        print(f"phase12 snapshot: {'x'.join(map(str, img.shape))}, lit share {lit:.4f} "
+              f"{'ok' if ok_c else 'FAIL'}", flush=True)
+        if not ok_c:
+            failures.append("phase 12 snapshot")
+
+        # (d) the tool's own entry point, on the GPU
+        write_glb(os.path.join(tmp, "standin.glb"), n=n, tex=64)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raytracing_c_tpu_torch.tools.bvh_viz", "standin.glb",
+             "out.obj"], cwd=tmp, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+            text=True, timeout=600)
+        line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        ok_d = proc.returncode == 0 and f"depth={scene.bvh.depth}," in line
+        print(f"phase12 python -m raytracing_c_tpu_torch.tools.bvh_viz standin.glb out.obj: "
+              f"exit={proc.returncode} wall_s={time.perf_counter() - t0:.1f} said {line!r} "
+              f"{'ok' if ok_d else 'FAIL'}", flush=True)
+        if not ok_d:
+            print(proc.stderr[-4000:], flush=True)
+            failures.append("phase 12 python -m")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase12 wall_s={time.perf_counter() - t_phase:.3f}", flush=True)
+    return launches
+
+
 def fresh_flagship(spp: int) -> dict:
     """The flagship render() (phase 4's frame, warm-up and all) in a fresh
     Python process, first with no profiler ever started, then again after
@@ -1529,6 +1650,9 @@ def main(argv) -> int:
     # --- phase 11: the parity gate against the JAX package's references ---
     parity, launches11 = phase11_parity(np, reset_counts, counts, failures)
 
+    # --- phase 12: the BVH inspector, its overlay through the render path ---
+    launches12 = phase12_bvh_viz(np, torch, ps, scene_d, reset_counts, counts, failures)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", flush=True)
@@ -1539,7 +1663,7 @@ def main(argv) -> int:
                 "launches": launches8[name], "launches_without_nee": launches7[name],
                 "launches_mesh_nccl": [c.get(name, 0) for c in mesh_launches["a"]],
                 "launches_mesh_gloo": [c.get(name, 0) for c in mesh_launches["b"]],
-                "launches_parity": launches11[name],
+                "launches_parity": launches11[name], "launches_viz": launches12[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "library_ms": None}
 

@@ -11,6 +11,7 @@ each function has a counterpart of the same name:
              and `ops/denoise.py` + `csrc/denoise.cu` hold the kernels
 - `render/`  camera, wavefront integrator, batched renderer, lightmap baker
 - `io/`      model loaders, image codecs; `native/` the C QOI codec
+- `tools/`   the BVH inspector (`python -m raytracing_c_tpu_torch.tools.bvh_viz`)
 
 The package imports torch and numpy only. Functions run on the device of
 the tensors they are given (`scene.to("cuda")`); a kernel wrapper takes its

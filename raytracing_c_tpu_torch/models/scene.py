@@ -163,6 +163,13 @@ class BVH:
     def n_internal(self) -> int:
         return self.nodes.shape[0]
 
+    def child_boxes_np(self):
+        """(n_internal, 8, 3) mins and maxs as numpy, from the node rows
+        (cols = component * 8 + child for min.xyz, max.xyz); host tooling."""
+        t = self.nodes.detach().cpu().numpy()[:, : 6 * BVH_WIDTH]
+        t = t.reshape(-1, 6, BVH_WIDTH).transpose(0, 2, 1)  # (n, 8, 6)
+        return np.ascontiguousarray(t[..., :3]), np.ascontiguousarray(t[..., 3:])
+
     to = _to
 
 
