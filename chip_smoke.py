@@ -102,7 +102,23 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    snapshot, lit; (d) `python -m
    raytracing_c_tpu_torch.tools.bvh_viz standin.glb out.obj` in a
    subprocess on the card, which must exit 0 and print depth=4. Prints
-   the phase's wall time.
+   the phase's wall time;
+13. render()'s batch loop (the JAX package's k_group and accumulate) on
+   the stand-in at 1920x1080, phase 4's spp, 8 bounces: (a)
+   render(limit_batches=8) with k_group 4 and 1, each with and without
+   accumulate, the counters zeroed just before and read just after each:
+   byte-equal images, equal rays and batches, equal K1 (both kernels) and
+   K2 launches, each above 0; the same 8 batches through
+   render_batches_grouped equal the frame's rows and rays; (b)
+   render(limit_batches=5) with the defaults equals (a)'s image (the
+   whole last group of 4 is drawn, as the JAX package draws it) and
+   counts the rays of batches 0-4; (c) render_batch_indexed at batch 0
+   and at the padded last batch (its index a tensor on the card) equals
+   the rows of (a)'s and phase 4's frames, and render_batches_grouped
+   from the last batch returns it 4 times; (d) render() at 256x256, 4
+   spp under every JAX method name: the names mapped to K1 byte-equal to
+   method="bvh", "brute" within PSNR_MIN, an unknown name a ValueError.
+   Prints each case's wall time and the phase's.
 
 After phase 4, `chip_smoke.py --flagship-only SPP` renders phase 4's frame
 in a fresh process that has never started a profiler, then once more
@@ -126,8 +142,9 @@ wrapper's rule, ms, plain_ms, bound_ms, bound_by). "launches" are phase
 8's (the NEE path), "launches_without_nee" phase 7's, "launches_mesh_nccl"
 and "launches_mesh_gloo" each rank's in phase 10's flagship renders (a)
 and (b), "launches_parity" phase 11's, "launches_viz" phase 12's
-overlay; bvh_traverse also has phase 10d's sah_ms, sah_midpoint_ms,
-sah_max_abs_err and sah_bound_ms.
+overlay, "launches_batch_loop" phase 13a's first render; bvh_traverse
+also has phase 10d's sah_ms, sah_midpoint_ms, sah_max_abs_err and
+sah_bound_ms.
 Before the card's name comes {"parity": {...}}: phase 11's cases (psnr_db,
 floor_db, byte_equal, port_wall_s, jax_wall_s, ok, twice_identical) and
 the fresh-process flagship beside phase 4's wall.
@@ -1205,6 +1222,141 @@ def phase12_bvh_viz(np, torch, ps, scene, reset_counts, counts, failures, n=88, 
     return launches
 
 
+#: phase 13's render() batch loops at limit_batches=8: (k_group, accumulate)
+BATCH_LOOPS = ((4, True), (4, False), (1, True), (1, False))
+#: the launch counters that render() moves (K3 runs only with -D)
+RENDER_KERNELS = ("bvh_traverse", "bvh_traverse_wide", "fetch_attrs")
+#: phase 13d's frame side: one batch of 262,144 rays at 4 spp
+METHODS_SIZE = 256
+
+
+def phase13_batch_api(np, torch, scene, img4, spp, reset_counts, counts, failures):
+    """Phase 13, render()'s batch loop, the batch API and the JAX method
+    names on `scene` at the flagship shape and phase 4's spp: (a)
+    render(limit_batches=8) for each BATCH_LOOPS case, the counters zeroed
+    just before and read just after each: byte-equal images, equal rays,
+    batches and K1/K2 launches, each kernel launched; the 8 batches through
+    render_batches_grouped equal (a)'s frame and rays; (b) render(
+    limit_batches=5) with the defaults (k_group 4, accumulate) equals (a)'s
+    image, the whole last group drawn, and counts the rays of batches 0-4;
+    (c) render_batch_indexed at b = 0 and at the padded last batch (a 0-d
+    tensor on the card) equals the rows of (a)'s and phase 4's frames, and
+    render_batches_grouped from the last batch gives it 4 times; (d)
+    render() at 256x256, 4 spp with every JAX method name: each name
+    mapped to K1 equal to method="bvh" byte for byte, "brute" within
+    PSNR_MIN of it, an unknown name a ValueError. Returns (a)'s launches."""
+    from raytracing_c_tpu_torch.ops import traverse
+    from raytracing_c_tpu_torch.render import renderer
+    from raytracing_c_tpu_torch.utils import rng
+
+    t_phase = time.perf_counter()
+    n_pixels = WIDTH * HEIGHT
+    bp = BATCH_RAYS // spp  # render()'s default batch
+    kw = dict(spp=spp, max_bounces=BOUNCES, seed=0, batch_pixels=bp)
+    n_batches = -(-n_pixels // bp)
+    xs, ys, perm = renderer._pixel_tables_device(WIDTH, HEIGHT, n_batches * bp - n_pixels,
+                                                 scene.device)
+    perm = perm.cpu().numpy()
+
+    def rows(frame, b):  # batch b's pixels of an (H, W, 3) frame, in batch order
+        return frame.reshape(-1, 3)[perm[b * bp:min((b + 1) * bp, n_pixels)]]
+
+    def same_rows(frame, b, rgb):
+        want = rows(frame, b)
+        return bool((rgb[:len(want)].cpu().numpy() == want).all())
+
+    runs = []
+    for k, acc in BATCH_LOOPS:
+        reset_counts()
+        t0 = time.perf_counter()
+        img, st = renderer.render(scene, WIDTH, HEIGHT, limit_batches=8, k_group=k,
+                                  accumulate=acc, **kw)
+        wall = time.perf_counter() - t0
+        c = counts()
+        c = {name: c[name] for name in RENDER_KERNELS}
+        runs.append((img, st, c))
+        print(f"phase13a render(limit_batches=8, k_group={k}, accumulate={acc}): "
+              f"wall_s={wall:.3f} rays={st.rays_traced} batches={st.batches} launches={c}",
+              flush=True)
+    img8, st8, c8 = runs[0]
+    ok = (all((img == img8).all() and (st.rays_traced, st.batches, c)
+              == (st8.rays_traced, st8.batches, c8) for img, st, c in runs)
+          and st8.batches == 8 and all(v > 0 for v in c8.values()) and img8.std() > 5.0)
+    key = rng.prng_key(0, scene.device)
+    bkw = dict(width=WIDTH, height=HEIGHT, spp=spp, max_bounces=BOUNCES, batch_px=bp,
+               method="auto", compact=True)
+    t0 = time.perf_counter()
+    rgb8, rays8 = renderer.render_batches_grouped(scene, xs, ys, key, 0, k_group=8, **bkw)
+    wall_g = time.perf_counter() - t0
+    per_batch = [int(r) for r in rays8.cpu()]
+    grouped_ok = (all(same_rows(img8, b, rgb8[b]) for b in range(8))
+                  and sum(per_batch) == st8.rays_traced)
+    print(f"phase13a byte_equal={all((img == img8).all() for img, _, _ in runs)} "
+          f"render_batches_grouped(b0=0, k_group=8): wall_s={wall_g:.3f} rays per batch "
+          f"{per_batch} equal to the frame={grouped_ok} {'ok' if ok and grouped_ok else 'FAIL'}",
+          flush=True)
+    if not (ok and grouped_ok):
+        failures.append("phase 13a batch loops")
+
+    t0 = time.perf_counter()
+    img5, st5 = renderer.render(scene, WIDTH, HEIGHT, limit_batches=5, **kw)
+    wall5 = time.perf_counter() - t0
+    ok = (bool((img5 == img8).all()) and st5.rays_traced == sum(per_batch[:5])
+          and st5.batches == 5)
+    lit = [bool(rows(img5, b).any()) for b in range(8)]
+    print(f"phase13b render(limit_batches=5): wall_s={wall5:.3f} equal to (a)'s 8-batch image="
+          f"{bool((img5 == img8).all())} batches lit {lit} rays={st5.rays_traced} (batches 0-4 "
+          f"{sum(per_batch[:5])}) batches={st5.batches} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("phase 13b limit_batches")
+
+    last = n_batches - 1
+    t0 = time.perf_counter()
+    rgb0, r0 = renderer.render_batch_indexed(scene, xs, ys, key, 0, **bkw)
+    rgb_l, r_l = renderer.render_batch_indexed(
+        scene, xs, ys, key, torch.tensor(last, device=scene.device), **bkw)
+    rgb_g, r_g = renderer.render_batches_grouped(scene, xs, ys, key, last, k_group=4, **bkw)
+    wall_c = time.perf_counter() - t0
+    ok = (same_rows(img8, 0, rgb0) and int(r0) == per_batch[0] and same_rows(img4, last, rgb_l)
+          and all(torch.equal(g, rgb_l) for g in rgb_g) and all(int(r) == int(r_l) for r in r_g))
+    print(f"phase13c render_batch_indexed b=0 and b={last} (padded: {n_pixels - last * bp} "
+          f"pixels of {bp}), render_batches_grouped(b0={last}, k_group=4): wall_s={wall_c:.3f} "
+          f"equal to the frames' rows and to each other={ok} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        failures.append("phase 13c render_batch_indexed")
+
+    small = dict(spp=4, max_bounces=BOUNCES, seed=3)
+    ref, st_ref = renderer.render(scene, METHODS_SIZE, METHODS_SIZE, method="bvh", **small)
+    ok = True
+    for name in ("auto", *traverse.JAX_METHODS):
+        t0 = time.perf_counter()
+        got, st = renderer.render(scene, METHODS_SIZE, METHODS_SIZE, method=name, **small)
+        wall = time.perf_counter() - t0
+        port = traverse.port_method(name, scene)
+        if port == "bvh":
+            good = bool((got == ref).all()) and st.rays_traced == st_ref.rays_traced
+            said = f"byte_equal to bvh={good}"
+        else:
+            p = psnr(np, got, ref)
+            good = p >= PSNR_MIN
+            said = f"vs bvh PSNR={p:.2f} dB"
+        ok &= good
+        print(f"phase13d method={name} -> {port} {METHODS_SIZE}x{METHODS_SIZE} spp=4: "
+              f"wall_s={wall:.3f} {said} {'ok' if good else 'FAIL'}", flush=True)
+    try:
+        renderer.render(scene, METHODS_SIZE, METHODS_SIZE, method="no_such_method", **small)
+        raised = False
+    except ValueError:
+        raised = True
+    print(f"phase13d method=no_such_method raises ValueError={raised} "
+          f"{'ok' if raised else 'FAIL'}", flush=True)
+    if not (ok and raised):
+        failures.append("phase 13d method names")
+    print(f"phase13 wall_s={time.perf_counter() - t_phase:.3f}", flush=True)
+    return c8
+
+
 def fresh_flagship(spp: int) -> dict:
     """The flagship render() (phase 4's frame, warm-up and all) in a fresh
     Python process, first with no profiler ever started, then again after
@@ -1653,6 +1805,9 @@ def main(argv) -> int:
     # --- phase 12: the BVH inspector, its overlay through the render path ---
     launches12 = phase12_bvh_viz(np, torch, ps, scene_d, reset_counts, counts, failures)
 
+    # --- phase 13: render()'s batch loop, the batch API, the JAX method names ---
+    launches13 = phase13_batch_api(np, torch, scene_d, img, spp, reset_counts, counts, failures)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", flush=True)
@@ -1664,6 +1819,7 @@ def main(argv) -> int:
                 "launches_mesh_nccl": [c.get(name, 0) for c in mesh_launches["a"]],
                 "launches_mesh_gloo": [c.get(name, 0) for c in mesh_launches["b"]],
                 "launches_parity": launches11[name], "launches_viz": launches12[name],
+                "launches_batch_loop": launches13.get(name, 0),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "library_ms": None}
 

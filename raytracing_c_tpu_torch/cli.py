@@ -10,8 +10,9 @@ the double-dashed extensions --seed, --bg, --no-bg, --batch-pixels,
 --rr, --nee, --save-scene, --load-scene. `main` renders on `device` (CUDA
 unless the caller asks for the CPU) and, with -D, denoises the frame there
 through the K3 kernel before its one read-back; a failure of the kernel is
-fatal. --method takes the JAX package's names: every traversal maps to
-"bvh" (the exact K1 kernel), brute to the brute-force oracle. --profile
+fatal. --method takes the JAX package's names, mapped by
+`ops/traverse.py:port_method`: every traversal to "bvh" (the exact K1
+kernel), brute to the brute-force oracle. --profile
 DIR writes a torch.profiler chrome trace to DIR/trace.json. The stages run
 in the JAX CLI's order: --load-scene CACHE, else the model; then
 --debug-normals; then --save-scene CACHE (the npz layout both packages
@@ -93,12 +94,13 @@ def parse_args(argv: list[str]):
             if a == "--bg":
                 key = "background"
             v = argv[i + 1]
-            if a == "--method" and v not in (
-                "auto", "pallas", "pallas_fused", "pallas_fast", "topk",
-                "topk_fast", "dfs", "brute",
-            ):
-                print(f"unknown --method '{v}'", file=sys.stderr)
-                return None
+            if a == "--method":
+                # imported here: importing this module imports no torch
+                from raytracing_c_tpu_torch.ops.traverse import JAX_METHODS
+
+                if v not in ("auto", *JAX_METHODS):
+                    print(f"unknown --method '{v}'", file=sys.stderr)
+                    return None
             if a == "--tonemap" and v not in ("aces", "reinhard"):
                 return None
             cfg[key] = int(v) if a in ("--seed", "--batch-pixels") else v
@@ -132,10 +134,12 @@ def parse_args(argv: list[str]):
 
 def render_method(cfg: dict) -> str:
     """The port's render() method for the JAX CLI's --method/--brute-force."""
+    from raytracing_c_tpu_torch.ops.traverse import port_method
+
     m = cfg["method"]
     if m is None:
         return "brute" if cfg["brute_force"] else "auto"
-    return m if m in ("auto", "brute") else "bvh"
+    return port_method(m)
 
 
 def main(argv: list[str] | None = None, device="cuda") -> int:

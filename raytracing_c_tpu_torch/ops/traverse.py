@@ -11,7 +11,9 @@ Counterpart of `raytracing_c_tpu/ops/traverse.py:343,625`. Methods of
 K1 is exact by construction (an ordered stack traversal), so the JAX
 package's verified tiers, suspect repair and stale-attribute refetch have
 nothing to do here; the top-k, DFS and forest traversals are TPU-side
-alternatives of the same function and are not ported.
+alternatives of the same function and are not ported. Every function of
+the port that takes `method=` accepts the JAX package's names as well
+(`port_method`): each traversal runs K1, "brute" the oracle.
 """
 
 from __future__ import annotations
@@ -26,6 +28,28 @@ from raytracing_c_tpu_torch.utils.vec3 import Vec3
 INF = float("inf")
 #: rays per pass of intersect_bvh_culled, which bounds its (ray, node) pairs
 CULLED_RAY_CHUNK = 32768
+#: the JAX package's traversal names (its CLI's --method list) and the
+#: port's method for each: every traversal runs K1, which is exact (the
+#: JAX package's *_fast passes are unverified; here they are exact too)
+JAX_METHODS = {"pallas": "bvh", "pallas_fused": "bvh", "pallas_fast": "bvh", "topk": "bvh",
+               "topk_fast": "bvh", "dfs": "bvh", "brute": "brute"}
+
+
+def port_method(method: str, scene=None) -> str:
+    """The port's traversal method for `method`: "bvh" and "brute" as
+    they are, a JAX package name through JAX_METHODS, and "auto" by its
+    rule, the brute-force oracle for scenes of <= 64 triangle slots (the
+    reference's own `#if 0` path) and "bvh" otherwise; without a scene
+    "auto" stays "auto". Any other name raises ValueError."""
+    if method == "auto":
+        if scene is None:
+            return method
+        return "brute" if scene.triangles.capacity <= 64 else "bvh"
+    if method in ("bvh", "brute"):
+        return method
+    if method not in JAX_METHODS:
+        raise ValueError(f"unknown traversal method '{method}'")
+    return JAX_METHODS[method]
 
 
 def intersect_bruteforce_chunked(origin: Vec3, direction: Vec3, triangles,
@@ -139,15 +163,14 @@ def intersect_scene(scene, origin: Vec3, direction: Vec3, active=None,
     """ray_scene_hit (raytracer.c:497-503) + the sphere pass: nearest hit
     among BVH triangles and analytic spheres. Returns dict(t, tri, sph, u,
     v), tri/sph = -1 where not the winner, plus "attrs" (16, R) when the
-    "bvh" method fused the attribute epilogue."""
+    "bvh" method fused the attribute epilogue. method: see port_method."""
+    method = port_method(method, scene)
     if method == "bvh":
         hit = traverse_cuda.bvh_traverse(origin, direction, scene.triangles,
                                          scene.bvh, active, fuse_attr=fuse_attr)
         hit.pop("dropped_min")  # +inf: the traversal is exact
-    elif method == "brute":
+    else:  # "brute"
         hit = intersect_bruteforce_chunked(origin, direction, scene.triangles, active)
-    else:
-        raise ValueError(f"unknown traversal method '{method}'")
 
     t_tri = hit["t"]
     tri = torch.where(torch.isfinite(t_tri), hit["tri"], -1)

@@ -104,8 +104,10 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
     shaded lanes; an unoccluded sample adds throughput x nee_partial. A
     miss's background carries the BRDF side's MIS weight from
     st["prev_pdf"] (+inf: the previous vertex drew no light sample, full
-    weight). Shadow rays count in `rays`.
+    weight). Shadow rays count in `rays`. method: any name
+    `traverse.port_method` takes.
     """
+    method = traverse.port_method(method, scene)
     active = st["active"]
     o, d = st["origin"], st["direction"]
     r = o.shape[0]
@@ -213,6 +215,7 @@ def trace(scene, origin: Vec3, direction: Vec3, uniforms, max_bounces: int,
     (max_bounces, 3, R). Returns (radiance Vec3 of (R,), rays traced).
     nee samples `scene.env_light` where it is built (render() builds it,
     `env_light.scene_env_light`), else the sphere uniformly."""
+    method = traverse.port_method(method, scene)
     st = _initial_state(origin, direction)
     for i in range(max_bounces):
         if i > 0 and not bool(st["active"].any()):
@@ -240,6 +243,7 @@ def trace_bucketed(scene, origin: Vec3, direction: Vec3, key, max_bounces: int,
     slot order as lanes retire (the final unpermute). With nee each lane
     draws 7 uniforms per bounce: 4 for the material, 3 for the light sample.
     """
+    method = traverse.port_method(method, scene)
     r = origin.shape[0]
     dev = origin.x.device
     result = Vec3(*(torch.zeros((r,), device=dev) for _ in range(3)))

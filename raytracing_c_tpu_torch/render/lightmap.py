@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from raytracing_c_tpu_torch import EPSILON
+from raytracing_c_tpu_torch.ops import traverse
 from raytracing_c_tpu_torch.render import integrator
 from raytracing_c_tpu_torch.utils import rng
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
@@ -101,11 +102,11 @@ def bake_lightmap(scene, width: int, height: int, samples: int = 16, max_bounces
                   stats: dict | None = None):
     """Bake a float32 (height, width, 3) irradiance lightmap on the scene's
     device. method="auto" runs the brute-force oracle for scenes of <= 64
-    triangle slots and the "bvh" traversal kernel (K1) otherwise. Texels no
+    triangle slots and the "bvh" traversal kernel (K1) otherwise; the JAX
+    package's names map as `traverse.port_method` says. Texels no
     triangle covers stay 0. With `stats`, it receives texels (covered) and
     rays (traced)."""
-    if method == "auto":
-        method = "brute" if scene.triangles.capacity <= 64 else "bvh"
+    method = traverse.port_method(method, scene)
     dev = scene.device
 
     idx, pos, nrm = _rasterize_host(scene, width, height)
