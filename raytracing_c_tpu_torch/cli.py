@@ -13,7 +13,11 @@ through the K3 kernel before its one read-back; a failure of the kernel is
 fatal. --method takes the JAX package's names, mapped by
 `ops/traverse.py:port_method`: every traversal to "bvh" (the exact K1
 kernel), brute to the brute-force oracle. --profile
-DIR writes a torch.profiler chrome trace to DIR/trace.json. The stages run
+DIR records the whole run (load, env table, render, denoise, write) under
+torch.profiler with the program's spans on (`utils/spans.py`) and writes
+the chrome trace to DIR/trace.json: the layers (`load`, `decode`, `bvh`,
+`render`, `batch`, `bounce`, `intersect`, `shade`, `sync`, ...) sit on the
+timeline above the kernels they launch. The stages run
 in the JAX CLI's order: --load-scene CACHE, else the model; then
 --debug-normals; then --save-scene CACHE (the npz layout both packages
 read, `models/serialization.py`); then the render. --nee (environment
@@ -25,7 +29,6 @@ the load; -V prints its build time.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
 import time
@@ -148,7 +151,33 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
     if cfg is None:
         print_usage(sys.argv[0])
         return 1
+    if not cfg["profile"]:
+        return _run(cfg, device)
 
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_c_tpu_torch.utils import spans
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    was_on = spans.enabled()
+    with profile(activities=acts) as prof:
+        if not was_on:
+            spans.enable()
+        try:
+            rc = _run(cfg, device)
+        finally:
+            if not was_on:
+                spans.disable()
+    os.makedirs(cfg["profile"], exist_ok=True)
+    prof.export_chrome_trace(os.path.join(cfg["profile"], "trace.json"))
+    return rc
+
+
+def _run(cfg: dict, device) -> int:
+    """The CLI's stages for a parsed config."""
     import dataclasses
 
     import torch
@@ -160,6 +189,7 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
     from raytracing_c_tpu_torch.ops import env_light
     from raytracing_c_tpu_torch.ops.denoise import denoise_u8
     from raytracing_c_tpu_torch.render.renderer import render
+    from raytracing_c_tpu_torch.utils import spans
     from raytracing_c_tpu_torch.utils.progress import ProgressBar
 
     warn = print if cfg["verbose"] else (lambda *a, **k: None)
@@ -211,36 +241,24 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
         print(f"Devices:   {dev} ({name})")
         print()
 
-    if cfg["profile"]:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        tracer = profile(activities=acts)
-    else:
-        tracer = contextlib.nullcontext()
-
     bar = ProgressBar()
-    with tracer:
-        img, stats = render(
-            scene,
-            cfg["width"],
-            cfg["height"],
-            spp=cfg["samples"],
-            max_bounces=cfg["max_bounces"],
-            seed=cfg["seed"],
-            batch_pixels=cfg["batch_pixels"],
-            method=render_method(cfg),
-            texture_mode=cfg["texture_mode"],
-            progress=bar,
-            rr=cfg["rr"],
-            nee=cfg["nee"],
-            tonemap=cfg["tonemap"],
-            to_host=False,
-        )
+    img, stats = render(
+        scene,
+        cfg["width"],
+        cfg["height"],
+        spp=cfg["samples"],
+        max_bounces=cfg["max_bounces"],
+        seed=cfg["seed"],
+        batch_pixels=cfg["batch_pixels"],
+        method=render_method(cfg),
+        texture_mode=cfg["texture_mode"],
+        progress=bar,
+        rr=cfg["rr"],
+        nee=cfg["nee"],
+        tonemap=cfg["tonemap"],
+        to_host=False,
+    )
     bar.finish()
-    if cfg["profile"]:
-        os.makedirs(cfg["profile"], exist_ok=True)
-        tracer.export_chrome_trace(os.path.join(cfg["profile"], "trace.json"))
 
     # --tonemap is applied on the float radiance inside the render
     # (renderer._batch_core), matching the reference's hook placement
@@ -259,7 +277,9 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
         print(f"Denoising: {(time.perf_counter() - t0) * 1e3:.0f}ms")
 
     t0 = time.perf_counter()
-    write_image(cfg["output"], img.cpu().numpy(), warn=print)
+    with spans.span("readback"):
+        host = img.cpu().numpy()
+    write_image(cfg["output"], host, warn=print)
     if cfg["verbose"]:
         print(f"Output file written in {(time.perf_counter() - t0) * 1e3:.0f}ms")
     return 0

@@ -19,6 +19,8 @@ import zlib
 
 import numpy as np
 
+from raytracing_c_tpu_torch.utils import spans
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: PNG colour type -> samples per pixel (grey, RGB, palette, grey+alpha, RGBA)
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -38,18 +40,20 @@ def load_image_rgb_u8(path: str) -> np.ndarray:
 
 
 def decode_image_rgb_u8(data: bytes, name: str = "<image bytes>") -> np.ndarray:
-    """Decode an in-memory image (glTF bufferView images) to (H, W, 3) u8."""
-    if data[:8] == _PNG_SIGNATURE:
-        return decode_png(data, name)
-    try:
-        import io
+    """Decode an in-memory image (glTF bufferView images) to (H, W, 3) u8,
+    inside a `decode` span."""
+    with spans.span("decode"):
+        if data[:8] == _PNG_SIGNATURE:
+            return decode_png(data, name)
+        try:
+            import io
 
-        from PIL import Image
-    except ImportError:
-        what = "JPEG" if data[:2] == b"\xff\xd8" else "a non-PNG image"
-        raise ValueError(f"{what} needs Pillow: {name}") from None
-    with Image.open(io.BytesIO(data)) as im:
-        return np.asarray(im.convert("RGB"), np.uint8)
+            from PIL import Image
+        except ImportError:
+            what = "JPEG" if data[:2] == b"\xff\xd8" else "a non-PNG image"
+            raise ValueError(f"{what} needs Pillow: {name}") from None
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGB"), np.uint8)
 
 
 def png_scanlines(data: bytes, name: str = "<png bytes>"):
@@ -229,20 +233,21 @@ def write_qoi(path: str, img: np.ndarray) -> None:
 
 def write_image(path: str, img: np.ndarray, warn=print) -> None:
     """Format dispatch by suffix with the reference's default-to-PNG warning
-    (driver.c:839-851)."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        write_png(path, img)
-    elif ext == ".qoi":
-        write_qoi(path, img)
-    elif ext == ".ppm":
-        write_ppm(path, img)
-    else:
-        warn(
-            f"output format not recognized for output path '{path}', "
-            "defaulting to png"
-        )
-        write_png(path, img)
+    (driver.c:839-851), inside a `write` span."""
+    with spans.span("write"):
+        ext = os.path.splitext(path)[1].lower()
+        if ext == ".png":
+            write_png(path, img)
+        elif ext == ".qoi":
+            write_qoi(path, img)
+        elif ext == ".ppm":
+            write_ppm(path, img)
+        else:
+            warn(
+                f"output format not recognized for output path '{path}', "
+                "defaulting to png"
+            )
+            write_png(path, img)
 
 
 # ---------------------------------------------------------------------------

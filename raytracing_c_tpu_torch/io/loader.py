@@ -19,6 +19,7 @@ from raytracing_c_tpu_torch.io.image_io import load_image_rgb_u8
 from raytracing_c_tpu_torch.io.materials import build_material_table
 from raytracing_c_tpu_torch.io.obj_loader import load_obj
 from raytracing_c_tpu_torch.models.scene import Background, Camera, build_scene, resolve_device
+from raytracing_c_tpu_torch.utils import spans
 
 #: fallback sky when no env map is available (linear RGB)
 DEFAULT_SKY = (0.5, 0.62, 0.78)
@@ -42,29 +43,33 @@ def load_scene(path: str, background_path: str | None = "background.png", warn=p
                device="cuda"):
     """Full scene assembly mirroring main() (driver.c:730-788): default
     camera, env map, model load (camera override), BVH build; the scene
-    lands on `device`, which is checked before the model is read."""
+    lands on `device`, which is checked before the model is read. Spans:
+    `load` over `parse` (the model file, its images' `decode` inside),
+    `decode` (the env map), `bvh`, `upload` and `k1_tables`."""
     resolve_device(device)
-    mesh, mats, atlas, camera = load_model(path, warn=warn)
+    with spans.span("load"):
+        with spans.span("parse"):
+            mesh, mats, atlas, camera = load_model(path, warn=warn)
 
-    background = Background.constant(DEFAULT_SKY)
-    if background_path:
-        try:
-            img = load_image_rgb_u8(background_path)
-        except (OSError, ValueError) as e:
-            # reference load_texture parity (driver.c:106-116): any failure
-            # to read/decode the env map is fatal, never a silent fallback
-            raise FileNotFoundError(f"Failed to load texture: '{background_path}'") from e
-        tid = atlas.add(img, key=os.path.normpath(background_path))
-        background = Background.equirect(tid)
+        background = Background.constant(DEFAULT_SKY)
+        if background_path:
+            try:
+                img = load_image_rgb_u8(background_path)
+            except (OSError, ValueError) as e:
+                # reference load_texture parity (driver.c:106-116): any failure
+                # to read/decode the env map is fatal, never a silent fallback
+                raise FileNotFoundError(f"Failed to load texture: '{background_path}'") from e
+            tid = atlas.add(img, key=os.path.normpath(background_path))
+            background = Background.equirect(tid)
 
-    if camera is None:
-        camera = Camera.default()
+        if camera is None:
+            camera = Camera.default()
 
-    return build_scene(
-        mesh,
-        materials=build_material_table(mats),
-        atlas=atlas.build(),
-        background=background,
-        camera=camera,
-        device=device,
-    )
+        return build_scene(
+            mesh,
+            materials=build_material_table(mats),
+            atlas=atlas.build(),
+            background=background,
+            camera=camera,
+            device=device,
+        )

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from raytracing_c_tpu_torch import BVH_WIDTH
+from raytracing_c_tpu_torch.utils import spans
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 # Shader kinds (reference: disney_shader_proc driver.c:350, debug_shader_proc
@@ -468,21 +469,26 @@ def build_scene(
 ) -> Scene:
     """scene_init (scene.c:416-426): build the BVH (`sah` picks the splitter,
     `models/bvh.py:build_bvh`) and pack the SoA store on the host, then put
-    the scene on `device`."""
+    the scene on `device`. Spans: `bvh` (the build and the packing),
+    `upload`, and K1's `k1_tables` on a GPU."""
     from raytracing_c_tpu_torch.models.bvh import build_bvh
 
     dev = resolve_device(device)
-    bvh, slot_map, _capacity = build_bvh(mesh, sah)
-    return _with_k1_tables(Scene(
-        triangles=pack_triangles(mesh, slot_map),
-        bvh=bvh,
-        materials=materials,
-        atlas=atlas,
-        spheres=spheres if spheres is not None else Spheres.empty(),
-        background=background,
-        camera=camera,
-        n_triangles=int(mesh.positions.shape[0]),
-    ).to(dev))
+    with spans.span("bvh"):
+        bvh, slot_map, _capacity = build_bvh(mesh, sah)
+        triangles = pack_triangles(mesh, slot_map)
+    with spans.span("upload"):
+        scene = Scene(
+            triangles=triangles,
+            bvh=bvh,
+            materials=materials,
+            atlas=atlas,
+            spheres=spheres if spheres is not None else Spheres.empty(),
+            background=background,
+            camera=camera,
+            n_triangles=int(mesh.positions.shape[0]),
+        ).to(dev)
+    return _with_k1_tables(scene)
 
 
 def _with_k1_tables(scene: Scene) -> Scene:

@@ -33,7 +33,7 @@ from raytracing_c_tpu_torch.models.scene import (
     _with_k1_tables,
     resolve_device,
 )
-from raytracing_c_tpu_torch.utils import bf16
+from raytracing_c_tpu_torch.utils import bf16, spans
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 FORMAT_VERSION = 3  # the JAX package's v3: + packed row tables
@@ -126,33 +126,37 @@ def save_scene_cache(path: str, scene: Scene) -> None:
 
 def load_scene_cache(path: str, device="cuda") -> Scene:
     """Read a scene cache written by either package onto `device`. Raises
-    ValueError for another format version."""
+    ValueError for another format version. Spans: `load` over `parse`,
+    `upload` and, on a GPU, `k1_tables`."""
     dev = resolve_device(device)
-    with np.load(path) as z:
-        header = z["header"]
-        version = int(header[0])
-        if version != FORMAT_VERSION:
-            raise ValueError(f"scene cache version {version} != {FORMAT_VERSION}")
-        _, n_nodes, n_triangles, depth, last_row_offset, bg_kind, bg_tex = (
-            int(x) for x in header)
+    with spans.span("load"):
+        with spans.span("parse"), np.load(path) as z:
+            header = z["header"]
+            version = int(header[0])
+            if version != FORMAT_VERSION:
+                raise ValueError(f"scene cache version {version} != {FORMAT_VERSION}")
+            _, n_nodes, n_triangles, depth, last_row_offset, bg_kind, bg_tex = (
+                int(x) for x in header)
 
-        t = lambda key: torch.from_numpy(np.array(z[key]))  # noqa: E731
-        v3 = lambda p: Vec3(t(f"{p}_x"), t(f"{p}_y"), t(f"{p}_z"))  # noqa: E731
-        bvh = BVH(nodes=t("bvh_nodes"), depth=depth, last_row_offset=last_row_offset)
-        if bvh.n_internal != n_nodes:
-            raise ValueError(f"scene cache: {bvh.n_internal} node rows, header says {n_nodes}")
-        scene = Scene(
-            triangles=Triangles(**{f: v3(f"tri_{f}") for f in _TRI_VEC},
-                                **{f: t(f"tri_{f}") for f in _TRI_SCALAR}),
-            bvh=bvh,
-            materials=MaterialTable(**{f: v3(f"mat_{f}") for f in _MAT_VEC},
-                                    **{f: t(f"mat_{f}") for f in _MAT_SCALAR}),
-            atlas=TextureAtlas(**{f: t(f"atlas_{f}") for f in _ATLAS}),
-            spheres=Spheres(center=v3("sph_center"), radius=t("sph_radius"),
-                            mat_id=t("sph_mat_id")),
-            background=Background(kind=bg_kind, color=t("bg_color"), tex_id=bg_tex),
-            camera=Camera(view_matrix=t("camera_view"), fov=t("camera_fov"),
-                          focal_length=t("camera_focal")),
-            n_triangles=n_triangles,
-        )
-    return _with_k1_tables(scene.to(dev))
+            t = lambda key: torch.from_numpy(np.array(z[key]))  # noqa: E731
+            v3 = lambda p: Vec3(t(f"{p}_x"), t(f"{p}_y"), t(f"{p}_z"))  # noqa: E731
+            bvh = BVH(nodes=t("bvh_nodes"), depth=depth, last_row_offset=last_row_offset)
+            if bvh.n_internal != n_nodes:
+                raise ValueError(f"scene cache: {bvh.n_internal} node rows, header says {n_nodes}")
+            scene = Scene(
+                triangles=Triangles(**{f: v3(f"tri_{f}") for f in _TRI_VEC},
+                                    **{f: t(f"tri_{f}") for f in _TRI_SCALAR}),
+                bvh=bvh,
+                materials=MaterialTable(**{f: v3(f"mat_{f}") for f in _MAT_VEC},
+                                        **{f: t(f"mat_{f}") for f in _MAT_SCALAR}),
+                atlas=TextureAtlas(**{f: t(f"atlas_{f}") for f in _ATLAS}),
+                spheres=Spheres(center=v3("sph_center"), radius=t("sph_radius"),
+                                mat_id=t("sph_mat_id")),
+                background=Background(kind=bg_kind, color=t("bg_color"), tex_id=bg_tex),
+                camera=Camera(view_matrix=t("camera_view"), fov=t("camera_fov"),
+                              focal_length=t("camera_focal")),
+                n_triangles=n_triangles,
+            )
+        with spans.span("upload"):
+            scene = scene.to(dev)
+        return _with_k1_tables(scene)

@@ -28,6 +28,7 @@ import functools
 import torch
 
 from raytracing_c_tpu_torch.ops import cuda_build
+from raytracing_c_tpu_torch.utils import spans
 from raytracing_c_tpu_torch.utils.color import LUMA
 
 DENOISING_THRESHOLD = 0.0125  # denoiser.c:9
@@ -95,27 +96,29 @@ def _library() -> ctypes.CDLL:
 
 
 def denoise_u8(img: torch.Tensor) -> torch.Tensor:
-    """K3 wrapper: (H, W, 3) u8 -> (H, W, 3) u8 on the image's device."""
-    if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3:
-        raise ValueError(f"denoise_u8: need an (H, W, 3) uint8 image, got {img.dtype} "
-                         f"{tuple(img.shape)}")
-    dev = img.device
-    if dev.type == "cpu":
-        return denoise_u8_plain(img)
-    if dev.type != "cuda":
-        raise ValueError(f"denoise_u8: unsupported device {dev}")
-    img = img.contiguous()
-    h, w, _ = img.shape
-    out = torch.empty_like(img)
-    if h == 0 or w == 0:
+    """K3 wrapper: (H, W, 3) u8 -> (H, W, 3) u8 on the image's device,
+    inside a `denoise` span."""
+    with spans.span("denoise"):
+        if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3:
+            raise ValueError(f"denoise_u8: need an (H, W, 3) uint8 image, got {img.dtype} "
+                             f"{tuple(img.shape)}")
+        dev = img.device
+        if dev.type == "cpu":
+            return denoise_u8_plain(img)
+        if dev.type != "cuda":
+            raise ValueError(f"denoise_u8: unsupported device {dev}")
+        img = img.contiguous()
+        h, w, _ = img.shape
+        out = torch.empty_like(img)
+        if h == 0 or w == 0:
+            return out
+        with torch.cuda.device(dev):  # the launch goes to the current device
+            err = _library().rt_denoise_u8(img.data_ptr(), out.data_ptr(), h, w,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"denoise_u8: CUDA launch failed with error {err}")
+        denoise_u8.launches += 1
         return out
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = _library().rt_denoise_u8(img.data_ptr(), out.data_ptr(), h, w,
-                                       torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"denoise_u8: CUDA launch failed with error {err}")
-    denoise_u8.launches += 1
-    return out
 
 
 denoise_u8.launches = 0

@@ -19,13 +19,13 @@ only when a NEE render needs it (`scene_env_light`) and keeps it.
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from raytracing_c_tpu_torch.models.scene import BG_EQUIRECT, _to
+from raytracing_c_tpu_torch.utils import spans
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 TWO_PI = 2.0 * math.pi
@@ -46,48 +46,50 @@ class EnvLight:
 
 def build_env_light(atlas, tex_id: int) -> EnvLight | None:
     """Host build of the alias table from the (u8, sRGB) equirect texture
-    `tex_id` of the atlas. Returns None for an all-black map."""
-    t0 = time.perf_counter()
-    off = int(atlas.offset[tex_id])
-    w = int(atlas.width[tex_id])
-    h = int(atlas.height[tex_id])
-    sl = slice(off, off + w * h)
+    `tex_id` of the atlas, an `env_table` span. Returns None for an
+    all-black map."""
+    with spans.timed("env_table") as clock:
+        off = int(atlas.offset[tex_id])
+        w = int(atlas.width[tex_id])
+        h = int(atlas.height[tex_id])
+        sl = slice(off, off + w * h)
 
-    def lin(c):
-        # the JAX package's pure-pow sRGB decode
-        return np.power(c[sl].cpu().numpy().astype(np.float64) / 255.0, 2.2)
+        def lin(c):
+            # the JAX package's pure-pow sRGB decode
+            return np.power(c[sl].cpu().numpy().astype(np.float64) / 255.0, 2.2)
 
-    lum = (0.2126 * lin(atlas.tex_r) + 0.7152 * lin(atlas.tex_g)
-           + 0.0722 * lin(atlas.tex_b)).reshape(h, w)
-    sin_t = np.sin(np.pi * (np.arange(h) + 0.5) / h)[:, None]
-    wgt = (lum * sin_t).reshape(-1)
-    total = wgt.sum()
-    if total <= 0.0:
-        return None
-    p = wgt / total
+        lum = (0.2126 * lin(atlas.tex_r) + 0.7152 * lin(atlas.tex_g)
+               + 0.0722 * lin(atlas.tex_b)).reshape(h, w)
+        sin_t = np.sin(np.pi * (np.arange(h) + 0.5) / h)[:, None]
+        wgt = (lum * sin_t).reshape(-1)
+        total = wgt.sum()
+        if total <= 0.0:
+            return None
+        p = wgt / total
 
-    # Vose alias construction on Python floats (float64, as numpy's): the
-    # JAX package's loop with its small/large pop order
-    n = w * h
-    scaled = (p * n).tolist()
-    alias = [0] * n
-    prob = [1.0] * n
-    small = np.flatnonzero(p * n < 1.0).tolist()
-    large = np.flatnonzero(p * n >= 1.0).tolist()
-    while small and large:
-        s, g = small.pop(), large.pop()
-        prob[s] = scaled[s]
-        alias[s] = g
-        scaled[g] = scaled[g] - (1.0 - scaled[s])
-        (small if scaled[g] < 1.0 else large).append(g)
+        # Vose alias construction on Python floats (float64, as numpy's): the
+        # JAX package's loop with its small/large pop order
+        n = w * h
+        scaled = (p * n).tolist()
+        alias = [0] * n
+        prob = [1.0] * n
+        small = np.flatnonzero(p * n < 1.0).tolist()
+        large = np.flatnonzero(p * n >= 1.0).tolist()
+        while small and large:
+            s, g = small.pop(), large.pop()
+            prob[s] = scaled[s]
+            alias[s] = g
+            scaled[g] = scaled[g] - (1.0 - scaled[s])
+            (small if scaled[g] < 1.0 else large).append(g)
 
-    dev = atlas.tex_r.device
-    return EnvLight(
-        prob=torch.tensor(np.asarray(prob, np.float32), device=dev),
-        alias=torch.tensor(alias, dtype=torch.int64, device=dev),
-        lum_p=torch.tensor(p.astype(np.float32), device=dev),
-        w=w, h=h, seconds=time.perf_counter() - t0,
-    )
+        dev = atlas.tex_r.device
+        out = EnvLight(
+            prob=torch.tensor(np.asarray(prob, np.float32), device=dev),
+            alias=torch.tensor(alias, dtype=torch.int64, device=dev),
+            lum_p=torch.tensor(p.astype(np.float32), device=dev), w=w, h=h,
+        )
+    out.seconds = clock.seconds
+    return out
 
 
 def scene_env_light(scene) -> EnvLight | None:

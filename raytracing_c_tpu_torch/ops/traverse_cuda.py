@@ -29,13 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import time
 from dataclasses import dataclass
 
 import torch
 
 from raytracing_c_tpu_torch import BVH_WIDTH
 from raytracing_c_tpu_torch.ops import cuda_build
+from raytracing_c_tpu_torch.utils import spans
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 INF = float("inf")
@@ -206,44 +206,44 @@ def build_k1_tables(nodes: torch.Tensor, leaf_rows: torch.Tensor, n_internal: in
     loses no hit."""
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"K1 tables: depth {depth} outside [1, {MAX_DEPTH}]")
-    t0 = time.perf_counter()
-    dev = nodes.device
-    nb = leaf_rows.shape[0]
-    slot_occ, occ = occupancy(leaf_rows, n_internal, depth)
-    count = slot_occ.sum(1)
-    start = torch.cumsum(count, 0) - count
-    ids = torch.nonzero(slot_occ.reshape(-1)).squeeze(1)
-    comp = _leaf_slots(leaf_rows).reshape(-1, 9)[ids].contiguous().view(torch.int32)
-    tris = torch.zeros((ids.numel(), 12), dtype=torch.int32, device=dev)
-    tris[:, 0:3], tris[:, 3] = comp[:, 0:3], ids.to(torch.int32)
-    tris[:, 4:7], tris[:, 8:11] = comp[:, 3:6], comp[:, 6:9]
+    with spans.timed("k1_tables") as clock:
+        dev = nodes.device
+        nb = leaf_rows.shape[0]
+        slot_occ, occ = occupancy(leaf_rows, n_internal, depth)
+        count = slot_occ.sum(1)
+        start = torch.cumsum(count, 0) - count
+        ids = torch.nonzero(slot_occ.reshape(-1)).squeeze(1)
+        comp = _leaf_slots(leaf_rows).reshape(-1, 9)[ids].contiguous().view(torch.int32)
+        tris = torch.zeros((ids.numel(), 12), dtype=torch.int32, device=dev)
+        tris[:, 0:3], tris[:, 3] = comp[:, 0:3], ids.to(torch.int32)
+        tris[:, 4:7], tris[:, 8:11] = comp[:, 3:6], comp[:, 6:9]
 
-    lane = torch.arange(W, device=dev)
-    child = W * torch.arange(n_internal, device=dev)[:, None] + 1 + lane  # (n, 8)
-    cnt = occ.sum(1)
-    is_leaf = child >= n_internal
-    blk = (child - n_internal).clamp(0, nb - 1)
-    ref = torch.where(is_leaf, LEAF_BIT | (start[blk] << 4) | count[blk],
-                      (child << 8) | (2 ** cnt[child.clamp(max=n_internal - 1)] - 1))
-    rec = torch.zeros((n_internal, W, 8), dtype=torch.int32, device=dev)
-    box = nodes[:, :6 * W].reshape(n_internal, 6, W).transpose(1, 2).double()
-    center = ((box[..., :3] + box[..., 3:]) * 0.5).float()
-    c64 = center.double()
-    half64 = torch.maximum(box[..., 3:] - c64, c64 - box[..., :3])  # exact in float64
-    half = half64.float()
-    half = torch.where(half.double() < half64, torch.nextafter(half, torch.full_like(half, INF)),
-                       half)
-    rec[:, :, 0:6] = torch.cat([center, half], -1).view(torch.int32)
-    rec[:, :, 6] = _int32_bits(ref)
-    order = torch.argsort((~occ).to(torch.int32), dim=1, stable=True)
-    rec = torch.gather(rec, 1, order[:, :, None].expand(-1, -1, 8))
-    rec[lane[None, :] >= cnt[:, None]] = 0
-    root = int(2 ** int(cnt[0]) - 1)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        lane = torch.arange(W, device=dev)
+        child = W * torch.arange(n_internal, device=dev)[:, None] + 1 + lane  # (n, 8)
+        cnt = occ.sum(1)
+        is_leaf = child >= n_internal
+        blk = (child - n_internal).clamp(0, nb - 1)
+        ref = torch.where(is_leaf, LEAF_BIT | (start[blk] << 4) | count[blk],
+                          (child << 8) | (2 ** cnt[child.clamp(max=n_internal - 1)] - 1))
+        rec = torch.zeros((n_internal, W, 8), dtype=torch.int32, device=dev)
+        box = nodes[:, :6 * W].reshape(n_internal, 6, W).transpose(1, 2).double()
+        center = ((box[..., :3] + box[..., 3:]) * 0.5).float()
+        c64 = center.double()
+        half64 = torch.maximum(box[..., 3:] - c64, c64 - box[..., :3])  # exact in float64
+        half = half64.float()
+        half = torch.where(half.double() < half64,
+                           torch.nextafter(half, torch.full_like(half, INF)), half)
+        rec[:, :, 0:6] = torch.cat([center, half], -1).view(torch.int32)
+        rec[:, :, 6] = _int32_bits(ref)
+        order = torch.argsort((~occ).to(torch.int32), dim=1, stable=True)
+        rec = torch.gather(rec, 1, order[:, :, None].expand(-1, -1, 8))
+        rec[lane[None, :] >= cnt[:, None]] = 0
+        root = int(2 ** int(cnt[0]) - 1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return K1Tables(nodes=rec.reshape(-1, 4).view(torch.float32),
                     tris=tris.reshape(-1, 4).view(torch.float32), root=root,
-                    seconds=time.perf_counter() - t0)
+                    seconds=clock.seconds)
 
 
 def k1_tables(bvh, triangles) -> K1Tables:
@@ -295,10 +295,13 @@ def bvh_traverse(origin: Vec3, direction: Vec3, triangles, bvh, active=None,
     fuse_attr the (16, R) "attrs" planes of K2 for the winner. Raises for a
     tree deeper than MAX_DEPTH. The kernel walks `k1_tables(bvh, triangles)`
     with one thread per ray, or with eight lanes per ray for fewer than
-    WIDE_BELOW rays.
+    WIDE_BELOW rays. The open span (`utils/spans.py`) gets the kernel that
+    ran ("thread", "wide", or "plain" on the CPU) and its rays; no launch,
+    no note.
     """
     dev = origin.x.device
     if dev.type == "cpu":
+        spans.note(kernel="plain", rays=origin.shape[0])
         return bvh_traverse_plain(origin, direction, triangles, active, t_max, fuse_attr, bvh)
     if dev.type != "cuda":
         raise ValueError(f"bvh_traverse: unsupported device {dev}")
@@ -337,6 +340,7 @@ def bvh_traverse(origin: Vec3, direction: Vec3, triangles, bvh, active=None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "bvh_traverse")
+    spans.note(kernel="wide" if wide else "thread", rays=r)
     if wide:
         bvh_traverse.wide_launches += 1
     else:

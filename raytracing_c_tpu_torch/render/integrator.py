@@ -21,6 +21,14 @@ with its fused attribute epilogue; deeper bounces run K1 bare and fetch
 the winners' attributes with K2. Both forms give the same planes. With
 nee, each bounce also launches K1 bare once more, on the shadow rays of
 its shaded lanes.
+
+Spans (`utils/spans.py`, off by default): each bounce of `trace` and
+`trace_bucketed` is a `bounce` span (its index and the lanes that enter
+it) over the leaves `rng` (the slot-keyed draws), `intersect` (K1 and its
+input packing; kind camera, bounce or shadow, and K1's wrapper notes the
+kernel it ran and its rays), `attrs`, `shade`, `background`, `advance` and
+`compact`, and a `sync` around each host read of device data (`what`:
+`compaction`, `shadow_lanes`, `active_any`).
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 from raytracing_c_tpu_torch import EPSILON
 from raytracing_c_tpu_torch.ops import background as bg_ops
 from raytracing_c_tpu_torch.ops import disney, env_light, traverse, traverse_cuda
-from raytracing_c_tpu_torch.utils import rng
+from raytracing_c_tpu_torch.utils import rng, spans
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 #: first bounce eligible for Russian roulette (when enabled)
@@ -112,82 +120,89 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
     o, d = st["origin"], st["direction"]
     r = o.shape[0]
 
-    hit = traverse.intersect_scene(scene, o, d, active, method=method,
-                                   fuse_attr=fuse_attr)
-    rays = st["rays"] + active.sum()
+    with spans.span("intersect", kind="camera" if bounce_i == 0 else "bounce"):
+        hit = traverse.intersect_scene(scene, o, d, active, method=method,
+                                       fuse_attr=fuse_attr)
+        rays = st["rays"] + active.sum()
+        is_hit = active & torch.isfinite(hit["t"])
+    with spans.span("attrs"):
+        geom = _gather_hit_geometry(scene, o, d, hit, method=method)
 
-    is_hit = active & torch.isfinite(hit["t"])
-    geom = _gather_hit_geometry(scene, o, d, hit, method=method)
+    with spans.span("shade"):
+        # backface skip: geometric OR shading normal along the ray
+        backface = is_hit & ((geom["ng"].dot(d) > 0.0) | (geom["normal"].dot(d) > 0.0))
+        shaded = is_hit & ~backface
+        out = disney.shade(
+            scene, d, geom["normal"].normalized(), geom["ng"], geom["tangent"],
+            geom["bitangent"], geom["uv_u"], geom["uv_v"], geom["mat_id"], rand4,
+            texture_mode, nee=nee, rand2=rand2,
+        )
+        zero = Vec3.zeros((r,), o.x.device)
+        radiance = st["radiance"] + Vec3.where(shaded, st["throughput"] * out["emission"], zero)
 
-    # backface skip: geometric OR shading normal along the ray
-    backface = is_hit & ((geom["ng"].dot(d) > 0.0) | (geom["normal"].dot(d) > 0.0))
-    shaded = is_hit & ~backface
-
-    out = disney.shade(
-        scene, d, geom["normal"].normalized(), geom["ng"], geom["tangent"],
-        geom["bitangent"], geom["uv_u"], geom["uv_v"], geom["mat_id"], rand4,
-        texture_mode, nee=nee, rand2=rand2,
-    )
-
-    zero = Vec3.zeros((r,), o.x.device)
-    radiance = st["radiance"] + Vec3.where(shaded, st["throughput"] * out["emission"], zero)
-    miss = active & ~is_hit
-    bg = bg_ops.eval_background(scene, d)
-    if nee:
-        pp2 = st["prev_pdf"] * st["prev_pdf"]
-        if scene.env_light is not None:
-            pl = env_light.eval_pdf(scene.env_light, d)
-            pl2 = pl * pl
-        else:
-            pl2 = disney.UNIFORM_SPHERE_PDF_SQ
-        bg = bg * torch.where(torch.isfinite(st["prev_pdf"]), pp2 / (pp2 + pl2), 1.0)
-    radiance = radiance + Vec3.where(miss, st["throughput"] * bg, zero)
+    with spans.span("background"):
+        miss = active & ~is_hit
+        bg = bg_ops.eval_background(scene, d)
+        if nee:
+            pp2 = st["prev_pdf"] * st["prev_pdf"]
+            if scene.env_light is not None:
+                pl = env_light.eval_pdf(scene.env_light, d)
+                pl2 = pl * pl
+            else:
+                pl2 = disney.UNIFORM_SPHERE_PDF_SQ
+            bg = bg * torch.where(torch.isfinite(st["prev_pdf"]), pp2 / (pp2 + pl2), 1.0)
+        radiance = radiance + Vec3.where(miss, st["throughput"] * bg, zero)
 
     if nee:
         # the shadow ray toward the light sample, over the shaded lanes only
         wd = out["nee_dir"]
-        lanes = torch.nonzero(shaded).squeeze(1)
-        s_org = geom["point"] + geom["ng"] * torch.where(geom["ng"].dot(wd) < 0.0,
-                                                         -EPSILON, EPSILON)
-        shot = traverse.intersect_scene(scene, s_org.gather(lanes), wd.gather(lanes),
-                                        method=method)
-        lit = torch.zeros_like(shaded).index_fill_(
-            0, lanes[~torch.isfinite(shot["t"])], True)
-        radiance = radiance + Vec3.where(lit, st["throughput"] * out["nee_partial"], zero)
-        rays = rays + lanes.numel()
+        with spans.span("sync", what="shadow_lanes"):
+            lanes = torch.nonzero(shaded).squeeze(1)
+        with spans.span("intersect", kind="shadow"):
+            s_org = geom["point"] + geom["ng"] * torch.where(geom["ng"].dot(wd) < 0.0,
+                                                             -EPSILON, EPSILON)
+            shot = traverse.intersect_scene(scene, s_org.gather(lanes), wd.gather(lanes),
+                                            method=method)
+        with spans.span("advance"):
+            lit = torch.zeros_like(shaded).index_fill_(
+                0, lanes[~torch.isfinite(shot["t"])], True)
+            radiance = radiance + Vec3.where(lit, st["throughput"] * out["nee_partial"], zero)
+            rays = rays + lanes.numel()
 
-    # terminated rays keep their accumulated emission and go inactive
-    cont = shaded & ~out["terminate"]
-    throughput = Vec3.where(cont, st["throughput"] * out["tint"], st["throughput"])
+    with spans.span("advance"):
+        # terminated rays keep their accumulated emission and go inactive
+        cont = shaded & ~out["terminate"]
+        throughput = Vec3.where(cont, st["throughput"] * out["tint"], st["throughput"])
 
-    if rr:
-        if bounce_i is None:
-            raise ValueError("rr needs bounce_i")
-        lum = torch.maximum(torch.maximum(throughput.x, throughput.y), throughput.z)
-        p = torch.clamp(lum, 0.05, 1.0)
-        gamble = cont & (bounce_i >= RR_START)
-        kill = gamble & (rand4[3] >= p)
-        cont = cont & ~kill
-        throughput = throughput * torch.where(gamble & ~kill, 1.0 / p, 1.0)
+        if rr:
+            if bounce_i is None:
+                raise ValueError("rr needs bounce_i")
+            lum = torch.maximum(torch.maximum(throughput.x, throughput.y), throughput.z)
+            p = torch.clamp(lum, 0.05, 1.0)
+            gamble = cont & (bounce_i >= RR_START)
+            kill = gamble & (rand4[3] >= p)
+            cont = cont & ~kill
+            throughput = throughput * torch.where(gamble & ~kill, 1.0 / p, 1.0)
 
-    # next ray origin: epsilon rules (raytracer.c:520, 551-552)
-    bias = torch.where(geom["ng"].dot(out["direction"]) < 0.0, -EPSILON, EPSILON)
-    origin_shaded = geom["point"] + geom["ng"] * bias
-    origin_back = geom["point"] + d * EPSILON
-    new_origin = Vec3.where(backface, origin_back, Vec3.where(cont, origin_shaded, o))
-    new_dir = Vec3.where(cont, out["direction"], d)
+        # next ray origin: epsilon rules (raytracer.c:520, 551-552)
+        bias = torch.where(geom["ng"].dot(out["direction"]) < 0.0, -EPSILON, EPSILON)
+        origin_shaded = geom["point"] + geom["ng"] * bias
+        origin_back = geom["point"] + d * EPSILON
+        new_origin = Vec3.where(backface, origin_back, Vec3.where(cont, origin_shaded, o))
+        new_dir = Vec3.where(cont, out["direction"], d)
 
-    prev_pdf = st["prev_pdf"]
-    if nee:
-        # a backface re-cast continues the same segment: it keeps its pdf
-        prev_pdf = torch.where(backface, prev_pdf,
-                               torch.where(cont, out["pdf_eval"], float("inf")))
+        prev_pdf = st["prev_pdf"]
+        if nee:
+            # a backface re-cast continues the same segment: it keeps its pdf
+            prev_pdf = torch.where(backface, prev_pdf,
+                                   torch.where(cont, out["pdf_eval"], float("inf")))
+        active = cont | backface
     return {
         "origin": new_origin,
         "direction": new_dir,
         "throughput": throughput,
         "radiance": radiance,
-        "active": cont | backface,
+        "active": active,
         "rays": rays,
         "prev_pdf": prev_pdf,
     }
@@ -218,11 +233,15 @@ def trace(scene, origin: Vec3, direction: Vec3, uniforms, max_bounces: int,
     method = traverse.port_method(method, scene)
     st = _initial_state(origin, direction)
     for i in range(max_bounces):
-        if i > 0 and not bool(st["active"].any()):
-            break  # every path ended (the reference's per-pixel break)
-        st = bounce_step(scene, st, uniforms[i], method, texture_mode, rr=rr,
-                         bounce_i=i, fuse_attr=i == 0, nee=nee,
-                         rand2=nee_uniforms[i] if nee else None)
+        if i > 0:
+            with spans.span("sync", what="active_any"):
+                done = not bool(st["active"].any())
+            if done:
+                break  # every path ended (the reference's per-pixel break)
+        with spans.span("bounce", index=i, lanes=origin.shape[0]):
+            st = bounce_step(scene, st, uniforms[i], method, texture_mode, rr=rr,
+                             bounce_i=i, fuse_attr=i == 0, nee=nee,
+                             rand2=nee_uniforms[i] if nee else None)
     return st["radiance"], st["rays"]
 
 
@@ -254,17 +273,22 @@ def trace_bucketed(scene, origin: Vec3, direction: Vec3, key, max_bounces: int,
     for i in range(max_bounces):
         if slot.numel() == 0:
             break
-        lane_keys = rng.fold_in(rng.fold_in(key, slot), i)  # (n, 2)
-        rand = rng.uniform(lane_keys, (nu,)).T  # (nu, n)
-        st = bounce_step(scene, st, rand[:4], method, texture_mode, rr=rr,
-                         bounce_i=i, fuse_attr=i == 0, nee=nee,
-                         rand2=rand[4:] if nee else None)
-        for c in "xyz":
-            getattr(result, c).index_copy_(0, slot, getattr(st["radiance"], c))
-        live = torch.nonzero(st["active"]).squeeze(1)
-        if live.numel() < slot.numel():
-            slot = slot[live]
-            for name in _PLANES:
-                v = st[name]
-                st[name] = v.gather(live) if isinstance(v, Vec3) else v[live]
+        with spans.span("bounce", index=i, lanes=slot.numel()):
+            with spans.span("rng"):
+                lane_keys = rng.fold_in(rng.fold_in(key, slot), i)  # (n, 2)
+                rand = rng.uniform(lane_keys, (nu,)).T  # (nu, n)
+            st = bounce_step(scene, st, rand[:4], method, texture_mode, rr=rr,
+                             bounce_i=i, fuse_attr=i == 0, nee=nee,
+                             rand2=rand[4:] if nee else None)
+            with spans.span("compact"):
+                for c in "xyz":
+                    getattr(result, c).index_copy_(0, slot, getattr(st["radiance"], c))
+            with spans.span("sync", what="compaction"):
+                live = torch.nonzero(st["active"]).squeeze(1)
+            if live.numel() < slot.numel():
+                with spans.span("compact"):
+                    slot = slot[live]
+                    for name in _PLANES:
+                        v = st[name]
+                        st[name] = v.gather(live) if isinstance(v, Vec3) else v[live]
     return result, st["rays"]

@@ -28,6 +28,13 @@ draws by local slot under fold_in(fold_in(key, 1), rank), as each JAX
 shard does. Each rank keeps its blocks in a frame shard on its device;
 the frame is gathered once, in rank order, at the end of the render, and
 the ray counter is reduced once.
+
+Spans (`utils/spans.py`, off by default): `render` over the interval of
+RenderStats.wall_ms; `group` per render_batches_grouped(_acc) call;
+`batch` per render_batch, over `rng` (threefry draws), `raygen`, the
+integrator's bounces and `encode` (spp mean, tonemap, u8); `accumulate` and
+`scatter` for the frame writes; `readback` for the image and the ray count
+(its `sync`) reaching the host.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from raytracing_c_tpu_torch.ops import env_light, traverse
 from raytracing_c_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce, shard_rays
 from raytracing_c_tpu_torch.render import camera as camera_mod
 from raytracing_c_tpu_torch.render import integrator
-from raytracing_c_tpu_torch.utils import color, rng
+from raytracing_c_tpu_torch.utils import color, rng, spans
 
 
 @dataclass
@@ -78,13 +85,14 @@ def _draw_uniforms(key, r: int, max_bounces: int, nee: bool = False,
     nee, the light-sample uniforms (max_bounces, 3, R) from their own
     stream fold_in(key, 7919), so that the others do not change with nee.
     Returns (jitter, uniforms or None, nee uniforms or None)."""
-    k_jit, k_mat = rng.split(key)
-    jitter = rng.uniform(k_jit, (2, r))
-    if skip_mat:
-        return jitter, None, None
-    uniforms = rng.uniform(k_mat, (max_bounces, 4, r))
-    nee_uniforms = rng.uniform(rng.fold_in(key, 7919), (max_bounces, 3, r)) if nee else None
-    return jitter, uniforms, nee_uniforms
+    with spans.span("rng"):
+        k_jit, k_mat = rng.split(key)
+        jitter = rng.uniform(k_jit, (2, r))
+        if skip_mat:
+            return jitter, None, None
+        uniforms = rng.uniform(k_mat, (max_bounces, 4, r))
+        nee_uniforms = rng.uniform(rng.fold_in(key, 7919), (max_bounces, 3, r)) if nee else None
+        return jitter, uniforms, nee_uniforms
 
 
 def _batch_core(scene, px, py, jitter, uniforms, nee_uniforms, key, *, width, height,
@@ -93,10 +101,11 @@ def _batch_core(scene, px, py, jitter, uniforms, nee_uniforms, key, *, width, he
     the pre-drawn `uniforms` (and `nee_uniforms`); the bucketed tracer
     derives its uniforms from (key, sample slot, bounce)."""
     p = px.shape[0]
-    origin, direction = camera_mod.generate_rays(
-        scene.camera, width, height, px.repeat_interleave(spp),
-        py.repeat_interleave(spp), jitter[0], jitter[1],
-    )
+    with spans.span("raygen"):
+        origin, direction = camera_mod.generate_rays(
+            scene.camera, width, height, px.repeat_interleave(spp),
+            py.repeat_interleave(spp), jitter[0], jitter[1],
+        )
     if compact:
         radiance, rays = integrator.trace_bucketed(
             scene, origin, direction, key, max_bounces, method=method,
@@ -107,13 +116,14 @@ def _batch_core(scene, px, py, jitter, uniforms, nee_uniforms, key, *, width, he
             scene, origin, direction, uniforms, max_bounces, method=method,
             texture_mode=texture_mode, rr=rr, nee=nee, nee_uniforms=nee_uniforms,
         )
-    rgb = torch.stack([c.reshape(p, spp).mean(dim=1)
-                       for c in (radiance.x, radiance.y, radiance.z)], dim=-1)
-    if tonemap == "aces":
-        rgb = color.aces(rgb)
-    elif tonemap == "reinhard":
-        rgb = color.reinhard(rgb)
-    return color.encode_u8(rgb), rays
+    with spans.span("encode"):
+        rgb = torch.stack([c.reshape(p, spp).mean(dim=1)
+                           for c in (radiance.x, radiance.y, radiance.z)], dim=-1)
+        if tonemap == "aces":
+            rgb = color.aces(rgb)
+        elif tonemap == "reinhard":
+            rgb = color.reinhard(rgb)
+        return color.encode_u8(rgb), rays
 
 
 def render_batch(scene, px, py, key, *, width: int, height: int, spp: int,
@@ -127,26 +137,31 @@ def render_batch(scene, px, py, key, *, width: int, height: int, spp: int,
     scalar tensor))."""
     if nee:
         env_light.scene_env_light(scene)
-    jitter, uniforms, nee_uniforms = _draw_uniforms(key, px.shape[0] * spp, max_bounces, nee,
-                                                    skip_mat=compact)
-    return _batch_core(
-        scene, px, py, jitter, uniforms, nee_uniforms, rng.fold_in(key, 1), width=width,
-        height=height, spp=spp, max_bounces=max_bounces,
-        method=traverse.port_method(method, scene), texture_mode=texture_mode,
-        compact=compact, rr=rr, nee=nee, tonemap=tonemap,
-    )
+    with spans.span("batch"):
+        jitter, uniforms, nee_uniforms = _draw_uniforms(key, px.shape[0] * spp, max_bounces,
+                                                        nee, skip_mat=compact)
+        with spans.span("rng"):
+            key = rng.fold_in(key, 1)
+        return _batch_core(
+            scene, px, py, jitter, uniforms, nee_uniforms, key, width=width,
+            height=height, spp=spp, max_bounces=max_bounces,
+            method=traverse.port_method(method, scene), texture_mode=texture_mode,
+            compact=compact, rr=rr, nee=nee, tonemap=tonemap,
+        )
 
 
 def _render_shard(scene, px, py, key, mesh: Mesh, **kw):
     """This rank's block of the batch px, py (the whole batch's pixels):
     the batch's global draws from key, sliced along the ray axis, and the
     tracer's key fold_in(fold_in(key, 1), rank). No collective."""
-    jitter, uniforms, nee_uniforms = _draw_uniforms(
-        key, px.shape[0] * kw["spp"], kw["max_bounces"], kw["nee"], skip_mat=kw["compact"])
-    block = lambda a: None if a is None else shard_rays(a, mesh, axis=-1)  # noqa: E731
-    return _batch_core(scene, shard_rays(px, mesh), shard_rays(py, mesh), block(jitter),
-                       block(uniforms), block(nee_uniforms),
-                       rng.fold_in(rng.fold_in(key, 1), mesh.rank), **kw)
+    with spans.span("batch"):
+        jitter, uniforms, nee_uniforms = _draw_uniforms(
+            key, px.shape[0] * kw["spp"], kw["max_bounces"], kw["nee"], skip_mat=kw["compact"])
+        block = lambda a: None if a is None else shard_rays(a, mesh, axis=-1)  # noqa: E731
+        with spans.span("rng"):
+            key = rng.fold_in(rng.fold_in(key, 1), mesh.rank)
+        return _batch_core(scene, shard_rays(px, mesh), shard_rays(py, mesh), block(jitter),
+                           block(uniforms), block(nee_uniforms), key, **kw)
 
 
 def render_batch_sharded(scene, px, py, key, *, mesh: Mesh, width: int, height: int,
@@ -202,7 +217,9 @@ def render_batch_indexed(scene, xs_all, ys_all, key, b, *, width: int, height: i
         px, py = xs_all[idx], ys_all[idx]
     else:
         px, py = xs_all[b * batch_px:(b + 1) * batch_px], ys_all[b * batch_px:(b + 1) * batch_px]
-    return render_batch(scene, px, py, rng.fold_in(key, b), width=width, height=height, spp=spp,
+    with spans.span("rng"):
+        key = rng.fold_in(key, b)
+    return render_batch(scene, px, py, key, width=width, height=height, spp=spp,
                         max_bounces=max_bounces, method=method, texture_mode=texture_mode,
                         compact=compact, rr=rr, nee=nee, tonemap=tonemap)
 
@@ -220,14 +237,15 @@ def render_batches_grouped(scene, xs_all, ys_all, key, b0, *, width: int, height
     integer tensor (read once). Returns (rgb u8 (k_group, batch_px, 3),
     rays float32 (k_group,)), the JAX package's shapes and types: a batch's
     count is exact below 2**24 rays (262,144 rays x 8 bounces is 2**21)."""
-    n_batches = xs_all.shape[0] // batch_px
-    order = [min(int(b0) + j, n_batches - 1) for j in range(k_group)]
-    done = {b: render_batch_indexed(
-        scene, xs_all, ys_all, key, b, width=width, height=height, spp=spp,
-        max_bounces=max_bounces, batch_px=batch_px, method=method, texture_mode=texture_mode,
-        compact=compact, rr=rr, nee=nee, tonemap=tonemap) for b in dict.fromkeys(order)}
-    return (torch.stack([done[b][0] for b in order]),
-            torch.stack([done[b][1] for b in order]).to(torch.float32))
+    with spans.span("group"):
+        n_batches = xs_all.shape[0] // batch_px
+        order = [min(int(b0) + j, n_batches - 1) for j in range(k_group)]
+        done = {b: render_batch_indexed(
+            scene, xs_all, ys_all, key, b, width=width, height=height, spp=spp,
+            max_bounces=max_bounces, batch_px=batch_px, method=method, texture_mode=texture_mode,
+            compact=compact, rr=rr, nee=nee, tonemap=tonemap) for b in dict.fromkeys(order)}
+        return (torch.stack([done[b][0] for b in order]),
+                torch.stack([done[b][1] for b in order]).to(torch.float32))
 
 
 def render_batches_grouped_acc(scene, xs_all, ys_all, key, b0, acc, rays_acc, *, width: int,
@@ -245,9 +263,10 @@ def render_batches_grouped_acc(scene, xs_all, ys_all, key, b0, acc, rays_acc, *,
         scene, xs_all, ys_all, key, b0, width=width, height=height, spp=spp,
         max_bounces=max_bounces, batch_px=batch_px, k_group=k_group, method=method,
         texture_mode=texture_mode, compact=compact, rr=rr, nee=nee, tonemap=tonemap)
-    b0 = int(b0)
-    acc[b0 * batch_px:(b0 + k_group) * batch_px].copy_(rgb.reshape(-1, 3))
-    rays_acc[b0:b0 + k_group].copy_(rays)
+    with spans.span("accumulate"):
+        b0 = int(b0)
+        acc[b0 * batch_px:(b0 + k_group) * batch_px].copy_(rgb.reshape(-1, 3))
+        rays_acc[b0:b0 + k_group].copy_(rays)
     return acc, rays_acc
 
 
@@ -324,60 +343,70 @@ def render(scene, width: int, height: int, spp: int = 16, max_bounces: int = 8,
 
     if mesh is None:
         frame = torch.zeros((n_pixels, 3), dtype=torch.uint8, device=dev)
-        t0 = time.perf_counter()
-        if accumulate:
-            # sized from the whole frame's batches, as the JAX package's
-            n_slots = -(-n_batches_full // k_group) * k_group
-            acc = torch.zeros((n_slots * batch_pixels, 3), dtype=torch.uint8, device=dev)
-            rays_per_batch = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
-            for b in range(0, n_batches, k_group):
-                render_batches_grouped_acc(scene, xs_d, ys_d, key, b, acc, rays_per_batch,
-                                           batch_px=batch_pixels, k_group=k_group, **kw)
-                if progress is not None:
-                    progress(min(b + k_group, n_batches), n_batches)
-            frame[perm_d] = acc[:n_pixels]
-        else:
-            rays_per_batch = torch.zeros((max(n_batches, 1),), dtype=torch.float32, device=dev)
-            for b in range(0, n_batches, k_group):
-                k = min(k_group, n_batches - b)  # batches past n_batches would be dropped
-                rgb, rays = render_batches_grouped(scene, xs_d, ys_d, key, b,
-                                                   batch_px=batch_pixels, k_group=k, **kw)
-                for j in range(k):
-                    lo = (b + j) * batch_pixels
-                    hi = min(lo + batch_pixels, n_pixels)
-                    frame[perm_d[lo:hi]] = rgb[j, : hi - lo]
+        with spans.span("render"):
+            t0 = time.perf_counter()
+            if accumulate:
+                # sized from the whole frame's batches, as the JAX package's
+                n_slots = -(-n_batches_full // k_group) * k_group
+                acc = torch.zeros((n_slots * batch_pixels, 3), dtype=torch.uint8, device=dev)
+                rays_per_batch = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+                for b in range(0, n_batches, k_group):
+                    render_batches_grouped_acc(scene, xs_d, ys_d, key, b, acc, rays_per_batch,
+                                               batch_px=batch_pixels, k_group=k_group, **kw)
                     if progress is not None:
-                        progress(b + j + 1, n_batches)
-                rays_per_batch[b:b + k] = rays
-        img = frame.reshape(height, width, 3)
-        if to_host:
-            img = img.cpu().numpy()
-        # the counters follow the last batch on the stream: reading them waits
-        # for the whole frame
-        rays_total = int(rays_per_batch[:n_batches].sum(dtype=torch.float64))
-        wall_ms = (time.perf_counter() - t0) * 1e3
+                        progress(min(b + k_group, n_batches), n_batches)
+                with spans.span("scatter"):
+                    frame[perm_d] = acc[:n_pixels]
+            else:
+                rays_per_batch = torch.zeros((max(n_batches, 1),), dtype=torch.float32,
+                                             device=dev)
+                for b in range(0, n_batches, k_group):
+                    k = min(k_group, n_batches - b)  # batches past n_batches would be dropped
+                    rgb, rays = render_batches_grouped(scene, xs_d, ys_d, key, b,
+                                                       batch_px=batch_pixels, k_group=k, **kw)
+                    with spans.span("scatter"):
+                        for j in range(k):
+                            lo = (b + j) * batch_pixels
+                            hi = min(lo + batch_pixels, n_pixels)
+                            frame[perm_d[lo:hi]] = rgb[j, : hi - lo]
+                            if progress is not None:
+                                progress(b + j + 1, n_batches)
+                        rays_per_batch[b:b + k] = rays
+            with spans.span("readback"):
+                img = frame.reshape(height, width, 3)
+                if to_host:
+                    img = img.cpu().numpy()
+                # the counters follow the last batch on the stream: reading them
+                # waits for the whole frame
+                with spans.span("sync", what="rays"):
+                    rays_total = int(rays_per_batch[:n_batches].sum(dtype=torch.float64))
+            wall_ms = (time.perf_counter() - t0) * 1e3
     else:
         rays_per_batch = torch.zeros((max(n_batches, 1),), dtype=torch.int64, device=dev)
         shard = torch.zeros((n_batches, batch_pixels // mesh.world_size, 3),
                             dtype=torch.uint8, device=dev)
-        t0 = time.perf_counter()
-        for b in range(n_batches):
-            lo = b * batch_pixels
-            shard[b], rays_per_batch[b] = _render_shard(
-                scene, xs_d[lo:lo + batch_pixels], ys_d[lo:lo + batch_pixels],
-                rng.fold_in(key, b), mesh, **kw)
-            if progress is not None and mesh.rank == 0:
-                progress(b + 1, n_batches)
-        # position i of the tile order is rank (i % batch) // (batch / n)'s
-        # pixel: the blocks of batch b, in rank order, are its positions
-        flat = torch.stack(all_gather(shard, mesh), 1).reshape(-1, 3)
-        done = min(n_batches * batch_pixels, n_pixels)
-        frame = torch.zeros((n_pixels, 3), dtype=torch.uint8, device=flat.device)
-        frame[perm_d[:done].to(flat.device)] = flat[:done]
-        img = frame.reshape(height, width, 3)
-        img = img.cpu().numpy() if to_host else img.to(dev)
-        rays_total = int(all_reduce(rays_per_batch.sum(), mesh))
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with spans.span("render"):
+            t0 = time.perf_counter()
+            for b in range(n_batches):
+                lo = b * batch_pixels
+                shard[b], rays_per_batch[b] = _render_shard(
+                    scene, xs_d[lo:lo + batch_pixels], ys_d[lo:lo + batch_pixels],
+                    rng.fold_in(key, b), mesh, **kw)
+                if progress is not None and mesh.rank == 0:
+                    progress(b + 1, n_batches)
+            # position i of the tile order is rank (i % batch) // (batch / n)'s
+            # pixel: the blocks of batch b, in rank order, are its positions
+            flat = torch.stack(all_gather(shard, mesh), 1).reshape(-1, 3)
+            done = min(n_batches * batch_pixels, n_pixels)
+            with spans.span("scatter"):
+                frame = torch.zeros((n_pixels, 3), dtype=torch.uint8, device=flat.device)
+                frame[perm_d[:done].to(flat.device)] = flat[:done]
+            with spans.span("readback"):
+                img = frame.reshape(height, width, 3)
+                img = img.cpu().numpy() if to_host else img.to(dev)
+                with spans.span("sync", what="rays"):
+                    rays_total = int(all_reduce(rays_per_batch.sum(), mesh))
+            wall_ms = (time.perf_counter() - t0) * 1e3
         wall_ms = float(all_reduce(torch.tensor(wall_ms, dtype=torch.float64), mesh,
                                    op=dist.ReduceOp.MAX))
 

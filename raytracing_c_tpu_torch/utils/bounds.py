@@ -3,8 +3,8 @@
 A kernel's bound is the larger of two times: the bytes its function must
 move (each input read once, each output written once) over the card's
 memory rate, and the operations it does over the card's rate for them.
-`chip_smoke.py` and `tools/torch_profile.py` compute the bounds they report
-here, from the inputs of their own run.
+`chip_smoke.py` computes the bounds it reports here, from the inputs of
+its own run.
 
 Rates: one H100 SXM at its 700 W limit (NVIDIA's data sheet). Its 67
 TFLOP/s of float32 outside the tensor cores counts a fused multiply-add as
