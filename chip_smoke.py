@@ -27,7 +27,19 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    the same batch traced with nee under the env map (shadow0/procedural,
    shadow1/procedural, captured from trace_bucketed's own state), held to
    the oracle and timed on each kernel, each with its bound;
-3. K2 `fetch_attrs` against its plain version on the same hits;
+3. K2 `fetch_attrs` against its plain version on the same hits; then K4
+   `shade_bounce` on the lanes entering each bounce of the image-centre
+   batch (trace_bucketed's own compacted state and draws, as bounce_step
+   hands them on), on the procedural scene without NEE and under the env
+   map with NEE: K4's tail (the launch and, with NEE, the shadow test and
+   `nee_add`) against the integrator's plain tail on the same lanes, every
+   plane of the next state and the ray count bit-equal, one K4 launch a
+   bounce and one `nee_add` with NEE; each launch timed with its bound
+   (`bounds.k4_work`, bytes and operations), the plain tail timed on
+   bounce 0 and `nee_add` on bounce 0's shaded lanes; then a 1920x1080
+   frame and a 1024x1024 NEE frame at 16 spp with spans on, whose `shade`
+   spans (`spans.shade_summary`) must count every lane through K4 and
+   none through the plain tail;
 4. the render path: render() at 1920x1080, 16 spp, 8 bounces, method
    "auto", on a procedural stand-in for helmet.glb (15,490 triangles in a
    depth-4 BVH, 3 materials, 2048^2 albedo + normal + metal-roughness
@@ -44,8 +56,8 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    rotation/translation, a perspective camera node) and a 2048x1024
    equirect `background.png`, then cli.main() in-process at 1920x1080,
    16 spp (phase 4's cut, if any), 8 bounces, -D; the counters are zeroed
-   just before and read just after: both K1 kernels, K2 and K3 must have run, the
-   output must decode to a textured frame whose sky carries the env map.
+   just before and read just after: both K1 kernels, K2, K3 and K4 must have run
+   (the NEE add must not), the output must decode to a textured frame whose sky carries the env map.
    Before it, the host's time to decode the GLB's 2048^2 albedo texture and
    background.png (PNGs filtered per row like a real encoder's); after it,
    `python -m raytracing_c_tpu_torch` at 64x64 with -D in a subprocess;
@@ -107,8 +119,8 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    the stand-in at 1920x1080, phase 4's spp, 8 bounces: (a)
    render(limit_batches=8) with k_group 4 and 1, each with and without
    accumulate, the counters zeroed just before and read just after each:
-   byte-equal images, equal rays and batches, equal K1 (both kernels) and
-   K2 launches, each above 0; the same 8 batches through
+   byte-equal images, equal rays and batches, equal K1 (both kernels), K2
+   and K4 launches, each above 0; the same 8 batches through
    render_batches_grouped equal the frame's rows and rays; (b)
    render(limit_batches=5) with the defaults equals (a)'s image (the
    whole last group of 4 is drawn, as the JAX package draws it) and
@@ -138,7 +150,13 @@ the camera batch's numbers and, beside them, bounce1_rays, bounce1_ms,
 bounce1_bound_ms and bounce1_bound_by; bvh_traverse_wide (eight lanes per
 ray) with bounce 2's, and later_ms: [set, rays, ms] for bounces 3-7. Each
 has "shadow": the shadow sets on that kernel (set, rays, picked by the
-wrapper's rule, ms, plain_ms, bound_ms, bound_by). "launches" are phase
+wrapper's rule, ms, plain_ms, bound_ms, bound_by). shade_bounce (K4)
+carries phase 3's bounce 0 without NEE as ms, plain_ms (the plain tail's
+wall, its host dispatch included) and bound_ms, "nee" the same with NEE,
+batch_ms and batch_ms_nee (the 8 launches' device ms summed) beside
+their bounds, "per_bounce" each launch's lanes, shaded lanes, map taps,
+ms and bound (bytes_ms, ops_ms), and "spans" the two frames' counters;
+nee_add has bounce 0's NEE lanes, their ms and bound. "launches" are phase
 8's (the NEE path), "launches_without_nee" phase 7's, "launches_mesh_nccl"
 and "launches_mesh_gloo" each rank's in phase 10's flagship renders (a)
 and (b), "launches_parity" phase 11's, "launches_viz" phase 12's
@@ -769,6 +787,160 @@ def k1_ray_sets(scene_d, soup_d, scene_env, dev):
             ("random/soup", soup_d, ro, rd, True), *later], shadow_sets, (rad, rays)
 
 
+def k4_bounce_lanes(scene, nee: bool):
+    """The lanes entering each bounce of the flagship frame's image-centre
+    batch (render_batch at SPP and BOUNCES, seed 0, the compacted tracer's
+    own state and draws), as bounce_step hands them to K4's tail:
+    [(st, hit, rays, rand4, (method, texture_mode, rr, bounce_i, nee,
+    rand2))], one per bounce."""
+    import torch
+
+    from raytracing_c_tpu_torch.render import integrator, renderer
+    from raytracing_c_tpu_torch.utils import rng
+
+    bp = BATCH_RAYS // SPP
+    nb = math.ceil(WIDTH * HEIGHT / bp)
+    xs, ys, _ = renderer._pixel_tables_device(WIDTH, HEIGHT, nb * bp - WIDTH * HEIGHT,
+                                              scene.triangles.v0.x.device)
+    b_mid = int(torch.nonzero((xs == WIDTH // 2) & (ys == HEIGHT // 2))[0]) // bp
+    key = rng.fold_in(rng.prng_key(0, xs.device), b_mid)
+    captured, tail = [], integrator._tail_k4
+
+    def keep(scene_, st, hit, rays, rand4, *rest):
+        captured.append((st, hit, rays, rand4, rest))
+        return tail(scene_, st, hit, rays, rand4, *rest)
+
+    integrator._tail_k4 = keep
+    try:
+        sl = slice(b_mid * bp, (b_mid + 1) * bp)
+        renderer.render_batch(scene, xs[sl], ys[sl], key, width=WIDTH, height=HEIGHT, spp=SPP,
+                              max_bounces=BOUNCES, compact=True, nee=nee)
+    finally:
+        integrator._tail_k4 = tail
+    return captured
+
+
+def k4_mismatch(torch, got: dict, want: dict):
+    """K4's tail against the plain tail: the planes that differ in any bit
+    and the largest absolute difference over the float planes (0.0 when
+    every plane is bit-equal)."""
+    bad, err = [], 0.0
+    for name in ("origin", "direction", "throughput", "radiance", "active", "prev_pdf", "rays"):
+        pairs = ([(f"{name}.{c}", getattr(got[name], c), getattr(want[name], c)) for c in "xyz"]
+                 if name in ("origin", "direction", "throughput", "radiance")
+                 else [(name, got[name], want[name])])
+        for label, a, w in pairs:
+            if a.dtype == torch.float32:
+                same = a.view(torch.int32) == w.view(torch.int32)
+                if a.numel():
+                    diff = (a - w).abs().masked_fill(same, 0.0).nan_to_num(nan=math.inf)
+                    err = max(err, float(diff.max()))
+                ok = bool(same.all())
+            else:
+                ok = torch.equal(a, w)
+            if not ok:
+                bad.append(label)
+    return bad, err
+
+
+def phase3_k4(torch, scene_d, scene_env, failures, reps: int = 20) -> dict:
+    """Phase 3's K4 part (module docstring): the flagship batch's lanes at
+    each bounce through K4's tail and the plain tail, K4's and the NEE
+    add's device ms and bounds, the shade spans' counters over two frames.
+    Returns the kernels line's figures for shade_bounce and nee_add."""
+    from raytracing_c_tpu_torch.ops import shade_cuda, traverse
+    from raytracing_c_tpu_torch.render import integrator, renderer
+    from raytracing_c_tpu_torch.utils import bounds, spans
+    from raytracing_c_tpu_torch.utils.vec3 import Vec3
+
+    res = {"err": 0.0, "per_bounce": []}
+    for label, scene, nee in (("render", scene_d, False), ("nee", scene_env, True)):
+        batch_ms = batch_bound_ms = 0.0
+        for b, (st, hit, rays, rand4, rest) in enumerate(k4_bounce_lanes(scene, nee)):
+            method, mode, rr, bounce_i, _, rand2 = rest
+            before = shade_cuda.launch_counts()
+            got = integrator._tail_k4(scene, st, hit, rays, rand4, *rest)
+            after = shade_cuda.launch_counts()
+            plain_hit = {**hit, "is_hit": st["active"] & torch.isfinite(hit["t"])}
+            tail_plain = lambda: integrator._tail_plain(  # noqa: E731
+                scene, st, plain_hit, rays, rand4, *rest)
+            want = tail_plain()
+            torch.cuda.synchronize()
+            bad, err = k4_mismatch(torch, got, want)
+            res["err"] = max(res["err"], err)
+            launched = {k: after[k] - before[k] for k in after}
+
+            attrs = integrator.k4_attr_planes(scene, st["origin"], st["direction"], hit, method)
+            k4 = lambda: shade_cuda.shade_bounce(  # noqa: E731
+                scene, st, hit["t"], attrs, rand4, rand2, texture_mode=mode, rr=rr,
+                gamble=rr and bounce_i >= integrator.RR_START, nee=nee)
+            out = k4()
+            ms = device_ms(torch, k4, reps, "shade_bounce_kernel")
+            work = bounds.k4_work(scene, st, hit["t"], attrs, out["shaded"], nee, mode, rr)
+            bnd = bounds.bound(work)
+            batch_ms += ms
+            batch_bound_ms += bnd["bound_ms"]
+            row = {"set": label, "bounce": b, "lanes": work["lanes"], "hits": work["hits"],
+                   "shaded": work["shaded"], "map_taps": work["map_taps"], "ms": ms,
+                   "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                   "bytes_ms": bnd["bytes_ms"], "ops_ms": bnd["ops_ms"]}
+            extra = ""
+            if b == 0:
+                row["plain_ms"] = cuda_ms(torch, tail_plain, 5)
+                extra = f" plain_tail_ms={row['plain_ms']:.4f}"
+                res[label] = row
+                if nee:
+                    lanes = torch.nonzero(out["shaded"]).squeeze(1)
+                    ray = out["shadow"][:, lanes]
+                    shot_t = traverse.intersect_scene(
+                        scene, Vec3(ray[0], ray[1], ray[2]), Vec3(ray[3], ray[4], ray[5]),
+                        method=method)["t"]
+                    add_ms = device_ms(torch, lambda: shade_cuda.nee_add(out, lanes, shot_t),
+                                       reps, "nee_add_kernel")
+                    add_b = bounds.bound(bounds.nee_add_work(lanes.numel()))
+                    res["nee_add"] = {"lanes": int(lanes.numel()), "ms": add_ms,
+                                      "bound_ms": add_b["bound_ms"],
+                                      "bound_by": add_b["bound_by"]}
+                    extra += (f"; nee_add lanes={lanes.numel()} device_ms={add_ms:.4f} "
+                              f"bound_ms={add_b['bound_ms']:.5f} ({add_b['bound_by']}) share "
+                              f"{add_b['bound_ms'] / add_ms:.3f}")
+            res["per_bounce"].append(row)
+            adds = int(nee and bool(out["shaded"].any()))  # none over no shaded lane
+            ok = not bad and launched == {"shade_bounce": 1, "nee_add": adds}
+            print(f"phase3 K4 {label}/bounce{b}: lanes={work['lanes']} hits={work['hits']} "
+                  f"shaded={work['shaded']} map_taps={work['map_taps']} "
+                  f"bit_equal_to_plain_tail={not bad} differing={bad} max_abs_err={err:.3g} "
+                  f"launches={launched} device_ms={ms:.4f} bound_ms={bnd['bound_ms']:.5f} "
+                  f"({bnd['bound_by']}; bytes {work['bytes']} {bnd['bytes_ms']:.5f} ms, "
+                  f"operations {work['ops']:.4g} {bnd['ops_ms']:.5f} ms) share "
+                  f"{bnd['bound_ms'] / ms:.3f}{extra} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"K4 {label} bounce {b}")
+        res[f"batch_ms_{label}"] = batch_ms
+        res[f"batch_bound_ms_{label}"] = batch_bound_ms
+        print(f"phase3 K4 {label} batch: device_ms={batch_ms:.4f} over its launches, "
+              f"bound_ms={batch_bound_ms:.5f}", flush=True)
+
+    # the engagement counter: every shaded lane of a frame through K4
+    for label, scene, size, kw in (("render", scene_d, (WIDTH, HEIGHT), {}),
+                                   ("nee", scene_env, (1024, 1024), {"nee": True})):
+        spans.enable()
+        try:
+            t0 = time.perf_counter()
+            renderer.render(scene, *size, spp=SPP, max_bounces=BOUNCES, seed=2, **kw)
+            wall = time.perf_counter() - t0
+            summary = spans.shade_summary(spans.collect())
+        finally:
+            spans.disable()
+        res[f"spans_{label}"] = summary
+        ok = summary["plain_lanes"] == 0 and summary["k4_lanes"] > 0
+        print(f"phase3 K4 spans {label} {size[0]}x{size[1]} spp={SPP}: wall_s={wall:.3f} "
+              f"{summary} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"K4 spans {label}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Measurement helpers
 # ---------------------------------------------------------------------------
@@ -1225,7 +1397,7 @@ def phase12_bvh_viz(np, torch, ps, scene, reset_counts, counts, failures, n=88, 
 #: phase 13's render() batch loops at limit_batches=8: (k_group, accumulate)
 BATCH_LOOPS = ((4, True), (4, False), (1, True), (1, False))
 #: the launch counters that render() moves (K3 runs only with -D)
-RENDER_KERNELS = ("bvh_traverse", "bvh_traverse_wide", "fetch_attrs")
+RENDER_KERNELS = ("bvh_traverse", "bvh_traverse_wide", "fetch_attrs", "shade_bounce")
 #: phase 13d's frame side: one batch of 262,144 rays at 4 spp
 METHODS_SIZE = 256
 
@@ -1235,7 +1407,7 @@ def phase13_batch_api(np, torch, scene, img4, spp, reset_counts, counts, failure
     names on `scene` at the flagship shape and phase 4's spp: (a)
     render(limit_batches=8) for each BATCH_LOOPS case, the counters zeroed
     just before and read just after each: byte-equal images, equal rays,
-    batches and K1/K2 launches, each kernel launched; the 8 batches through
+    batches and K1/K2/K4 launches, each kernel launched; the 8 batches through
     render_batches_grouped equal (a)'s frame and rays; (b) render(
     limit_batches=5) with the defaults (k_group 4, accumulate) equals (a)'s
     image, the whole last group drawn, and counts the rays of batches 0-4;
@@ -1418,6 +1590,7 @@ def main(argv) -> int:
         from raytracing_c_tpu_torch.ops import cuda_build
         from raytracing_c_tpu_torch.ops import denoise as dn
         from raytracing_c_tpu_torch.ops import env_light
+        from raytracing_c_tpu_torch.ops import shade_cuda
         from raytracing_c_tpu_torch.ops import traverse_cuda as tc
         from raytracing_c_tpu_torch.parallel import launch
         from raytracing_c_tpu_torch.render import lightmap, renderer
@@ -1432,9 +1605,11 @@ def main(argv) -> int:
     def reset_counts():
         tc.reset_launch_counts()
         dn.denoise_u8.launches = 0
+        shade_cuda.reset_launch_counts()
 
     def counts():
-        return {**tc.launch_counts(), "denoise_u8": dn.denoise_u8.launches}
+        return {**tc.launch_counts(), "denoise_u8": dn.denoise_u8.launches,
+                **shade_cuda.launch_counts()}
 
     t_start = time.perf_counter()
     failures = []
@@ -1550,6 +1725,7 @@ def main(argv) -> int:
           f"{k2_bound['bound_ms'] / k2_ms:.3f} {'ok' if k2_ok else 'FAIL'}", flush=True)
     if not k2_ok:
         failures.append("K2")
+    k4 = phase3_k4(torch, scene_d, scene_env, failures)
 
     # --- phase 4: the render path through render() ---
     finite = bool(torch.isfinite(rad.x).all() & torch.isfinite(rad.y).all()
@@ -1572,7 +1748,8 @@ def main(argv) -> int:
     launches4 = counts()
     distinct = len(np.unique(img.reshape(-1, 3), axis=0))
     main_ok = (launches4["bvh_traverse"] > 0 and launches4["bvh_traverse_wide"] > 0
-               and launches4["fetch_attrs"] > 0 and img.shape == (HEIGHT, WIDTH, 3)
+               and launches4["fetch_attrs"] > 0 and launches4["shade_bounce"] > 0
+               and img.shape == (HEIGHT, WIDTH, 3)
                and float(img.std()) > 5.0 and distinct > 1000)
     print(f"phase4 render {WIDTH}x{HEIGHT} spp={spp} bounces={BOUNCES}: "
           f"wall_s={st.wall_ms / 1e3:.3f} rays={st.rays_traced} "
@@ -1671,7 +1848,8 @@ def main(argv) -> int:
 
         img7 = image_io.load_image_rgb_u8(out) if rc == 0 else np.zeros((1, 1, 3), np.uint8)
         sky = len(np.unique(img7[:64].reshape(-1, 3), axis=0))
-        ok7 = (rc == 0 and all(v > 0 for v in launches7.values())
+        ok7 = (rc == 0 and all(v > 0 for k, v in launches7.items() if k != "nee_add")
+               and launches7["nee_add"] == 0
                and img7.shape == (HEIGHT, WIDTH, 3) and float(img7.std()) > 5.0 and sky > 1)
         said = {key: num(pattern, text) for key, pattern in CLI_STAGES}
         print(f"phase7 cli {' '.join(argv7)}: exit={rc} wall_s={cli_wall:.3f} "
@@ -1824,6 +2002,9 @@ def main(argv) -> int:
                 "bound_by": b["bound_by"], "library_ms": None}
 
     src = "raytracing_c_tpu_torch/csrc/traverse.cu"
+    k4_src = "raytracing_c_tpu_torch/csrc/shade.cu"
+    k4_replaces = ("none: XLA fuses the JAX package's bounce tail "
+                   "(raytracing_c_tpu/render/integrator.py: bounce_step)")
     k1_pallas = "raytracing_c_tpu/ops/traverse_pallas.py:1391"
     b1 = k1_bounds["bounce1/procedural"]
     b2_ms, b2_plain_ms = runs["bounce2/procedural"][:2]
@@ -1843,6 +2024,14 @@ def main(argv) -> int:
         entry("denoise_u8", "raytracing_c_tpu_torch/csrc/denoise.cu",
               "raytracing_c_tpu/ops/denoise_pallas.py:98", k3_err, k3_ms, k3_plain_ms,
               k3_bound),
+        {**entry("shade_bounce", k4_src, k4_replaces, k4["err"], k4["render"]["ms"],
+                 k4["render"]["plain_ms"], k4["render"]),
+         "nee": k4["nee"], "batch_ms": k4["batch_ms_render"],
+         "batch_bound_ms": k4["batch_bound_ms_render"], "batch_ms_nee": k4["batch_ms_nee"],
+         "batch_bound_ms_nee": k4["batch_bound_ms_nee"], "per_bounce": k4["per_bounce"],
+         "spans": {"render": k4["spans_render"], "nee": k4["spans_nee"]}},
+        {**entry("nee_add", k4_src, k4_replaces, k4["err"], k4["nee_add"]["ms"], None,
+                 k4["nee_add"]), "lanes": k4["nee_add"]["lanes"]},
     ]
     print(json.dumps({"parity": {"gpu": gpu, **parity,
                                  "flagship_fresh_process": fresh,

@@ -17,7 +17,9 @@ DIR records the whole run (load, env table, render, denoise, write) under
 torch.profiler with the program's spans on (`utils/spans.py`) and writes
 the chrome trace to DIR/trace.json: the layers (`load`, `decode`, `bvh`,
 `render`, `batch`, `bounce`, `intersect`, `shade`, `sync`, ...) sit on the
-timeline above the kernels they launch. The stages run
+timeline above the kernels they launch, and prints to stderr what the
+`shade` spans counted (K4's launches a batch, the lanes through K4 and
+through the plain tail; `spans.shade_summary`). The stages run
 in the JAX CLI's order: --load-scene CACHE, else the model; then
 --debug-normals; then --save-scene CACHE (the npz layout both packages
 read, `models/serialization.py`); then the render. --nee (environment
@@ -168,6 +170,11 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
             spans.enable()
         try:
             rc = _run(cfg, device)
+            if not was_on:
+                s = spans.shade_summary(spans.collect())
+                print(f"spans: shade: K4 launches a batch {s['k4_launches_per_batch']}, lanes "
+                      f"through K4 {s['k4_lanes']}, through the plain tail {s['plain_lanes']}",
+                      file=sys.stderr)
         finally:
             if not was_on:
                 spans.disable()

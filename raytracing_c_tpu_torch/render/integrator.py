@@ -20,15 +20,20 @@ Attribute fetch on the "bvh" method: the first (camera) bounce runs K1
 with its fused attribute epilogue; deeper bounces run K1 bare and fetch
 the winners' attributes with K2. Both forms give the same planes. With
 nee, each bounce also launches K1 bare once more, on the shadow rays of
-its shaded lanes.
+its shaded lanes. On CUDA tensors the rest of a bounce, from shade to
+advance, is one launch of K4 (`ops/shade_cuda.py`), plus one that adds the
+NEE contribution of the unoccluded lanes; on CPU tensors it is the plain
+PyTorch tail that K4 is held to.
 
 Spans (`utils/spans.py`, off by default): each bounce of `trace` and
 `trace_bucketed` is a `bounce` span (its index and the lanes that enter
 it) over the leaves `rng` (the slot-keyed draws), `intersect` (K1 and its
 input packing; kind camera, bounce or shadow, and K1's wrapper notes the
-kernel it ran and its rays), `attrs`, `shade`, `background`, `advance` and
-`compact`, and a `sync` around each host read of device data (`what`:
-`compaction`, `shadow_lanes`, `active_any`).
+kernel it ran and its rays), `attrs`, `shade` (kernel `k4` or `plain` and
+the lanes it shades), `background` and `advance` (the plain tail's; K4's
+path keeps `advance` for the NEE add) and `compact`, and a `sync` around
+each host read of device data (`what`: `compaction`, `shadow_lanes`,
+`active_any`).
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ import torch
 
 from raytracing_c_tpu_torch import EPSILON
 from raytracing_c_tpu_torch.ops import background as bg_ops
-from raytracing_c_tpu_torch.ops import disney, env_light, traverse, traverse_cuda
+from raytracing_c_tpu_torch.ops import (disney, env_light, shade_cuda, traverse,
+                                        traverse_cuda)
 from raytracing_c_tpu_torch.utils import rng, spans
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
@@ -45,49 +51,48 @@ from raytracing_c_tpu_torch.utils.vec3 import Vec3
 RR_START = 3
 
 
+def _attr_planes(scene, hit, method: str):
+    """The winners' (16, R) attribute planes (`traverse_cuda.fetch_attrs_plain`'s
+    layout): K1's fused epilogue when the hit carries "attrs", K2 on the
+    "bvh" method, else the plain row gather."""
+    if "attrs" in hit:
+        return hit["attrs"]
+    fetch = traverse_cuda.fetch_attrs if method == "bvh" else traverse_cuda.fetch_attrs_plain
+    return fetch(scene.triangles.attr_rows, hit["tri"], hit["u"], hit["v"])
+
+
+def _with_spheres(scene, direction: Vec3, hit, g: dict) -> dict:
+    """Sphere winners take the analytic normal and basis, uv 0 and their
+    sphere's material in the geometry dict g (which holds the hit point)."""
+    sph = torch.clamp_min(hit["sph"], 0).long()
+    is_sph = hit["sph"] >= 0
+    center = scene.spheres.center.gather(sph)
+    n_sph = (g["point"] - center) * (1.0 / scene.spheres.radius[sph])
+    t_sph, b_sph = disney.basis(direction, n_sph)
+    return {
+        **g,
+        "normal": Vec3.where(is_sph, n_sph, g["normal"]),
+        "ng": Vec3.where(is_sph, n_sph, g["ng"]),
+        "tangent": Vec3.where(is_sph, t_sph, g["tangent"]),
+        "bitangent": Vec3.where(is_sph, b_sph, g["bitangent"]),
+        "uv_u": torch.where(is_sph, 0.0, g["uv_u"]),
+        "uv_v": torch.where(is_sph, 0.0, g["uv_v"]),
+        "mat_id": torch.where(is_sph, scene.spheres.mat_id[sph], g["mat_id"]),
+    }
+
+
 def _gather_hit_geometry(scene, origin: Vec3, direction: Vec3, hit,
                          method: str = "bvh"):
     """Winning triangle's interpolated attributes (the SIMD kernel's inline
-    interpolation, raytracer.c:159-183): from K1's fused epilogue when the
-    hit carries "attrs", from K2 on the "bvh" method, else from the plain
-    row gather. Sphere winners take the analytic normal and basis."""
-    if "attrs" in hit:
-        g = traverse_cuda.attrs_to_dict(hit["attrs"])
-    else:
-        fetch = traverse_cuda.fetch_attrs if method == "bvh" else traverse_cuda.fetch_attrs_plain
-        g = traverse_cuda.attrs_to_dict(
-            fetch(scene.triangles.attr_rows, hit["tri"], hit["u"], hit["v"])
-        )
-    normal, ng = g["normal"], g["ng"]
-    tangent, bitangent = g["tangent"], g["bitangent"]
-    uv_u, uv_v, mat_id = g["uv_u"], g["uv_v"], g["mat_id"]
-
-    point = origin + direction * hit["t"]
-
+    interpolation, raytracer.c:159-183) from `_attr_planes`, the hit point,
+    and the sphere winners' analytic normal and basis: dict(point, normal
+    (unnormalised interpolated), ng, tangent, bitangent, uv_u, uv_v,
+    mat_id)."""
+    g = traverse_cuda.attrs_to_dict(_attr_planes(scene, hit, method))
+    g["point"] = origin + direction * hit["t"]
     if scene.spheres.count > 0:
-        sph = torch.clamp_min(hit["sph"], 0).long()
-        is_sph = hit["sph"] >= 0
-        center = scene.spheres.center.gather(sph)
-        n_sph = (point - center) * (1.0 / scene.spheres.radius[sph])
-        t_sph, b_sph = disney.basis(direction, n_sph)
-        normal = Vec3.where(is_sph, n_sph, normal)
-        ng = Vec3.where(is_sph, n_sph, ng)
-        tangent = Vec3.where(is_sph, t_sph, tangent)
-        bitangent = Vec3.where(is_sph, b_sph, bitangent)
-        uv_u = torch.where(is_sph, 0.0, uv_u)
-        uv_v = torch.where(is_sph, 0.0, uv_v)
-        mat_id = torch.where(is_sph, scene.spheres.mat_id[sph], mat_id)
-
-    return {
-        "point": point,
-        "normal": normal,  # unnormalised interpolated normal
-        "ng": ng,
-        "tangent": tangent,
-        "bitangent": bitangent,
-        "uv_u": uv_u,
-        "uv_v": uv_v,
-        "mat_id": mat_id,
-    }
+        g = _with_spheres(scene, direction, hit, g)
+    return g
 
 
 def bounce_step(scene, st, rand4, method: str = "bvh",
@@ -114,21 +119,40 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
     st["prev_pdf"] (+inf: the previous vertex drew no light sample, full
     weight). Shadow rays count in `rays`. method: any name
     `traverse.port_method` takes.
+
+    After the intersection, CUDA tensors take K4 (`_tail_k4`: one kernel
+    from shade to advance) and CPU tensors the plain PyTorch tail
+    (`_tail_plain`, K4's oracle), which compute the same planes.
     """
+    if rr and bounce_i is None:
+        raise ValueError("rr needs bounce_i")
     method = traverse.port_method(method, scene)
     active = st["active"]
     o, d = st["origin"], st["direction"]
-    r = o.shape[0]
 
+    tail = _tail_k4 if o.x.device.type == "cuda" else _tail_plain
     with spans.span("intersect", kind="camera" if bounce_i == 0 else "bounce"):
         hit = traverse.intersect_scene(scene, o, d, active, method=method,
                                        fuse_attr=fuse_attr)
         rays = st["rays"] + active.sum()
-        is_hit = active & torch.isfinite(hit["t"])
+        if tail is _tail_plain:  # K4 tests its lanes' hits itself
+            hit["is_hit"] = active & torch.isfinite(hit["t"])
+    return tail(scene, st, hit, rays, rand4, method, texture_mode, rr, bounce_i, nee, rand2)
+
+
+def _tail_plain(scene, st, hit, rays, rand4, method, texture_mode, rr, bounce_i, nee,
+                rand2):
+    """bounce_step after the intersection, in plain PyTorch: attributes,
+    shade, background, the NEE shadow ray, advance. hit["is_hit"]: the
+    active lanes whose t is finite."""
+    active = st["active"]
+    o, d = st["origin"], st["direction"]
+    r = o.shape[0]
+    is_hit = hit["is_hit"]
     with spans.span("attrs"):
         geom = _gather_hit_geometry(scene, o, d, hit, method=method)
 
-    with spans.span("shade"):
+    with spans.span("shade", kernel="plain", lanes=r):
         # backface skip: geometric OR shading normal along the ray
         backface = is_hit & ((geom["ng"].dot(d) > 0.0) | (geom["normal"].dot(d) > 0.0))
         shaded = is_hit & ~backface
@@ -175,8 +199,6 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
         throughput = Vec3.where(cont, st["throughput"] * out["tint"], st["throughput"])
 
         if rr:
-            if bounce_i is None:
-                raise ValueError("rr needs bounce_i")
             lum = torch.maximum(torch.maximum(throughput.x, throughput.y), throughput.z)
             p = torch.clamp(lum, 0.05, 1.0)
             gamble = cont & (bounce_i >= RR_START)
@@ -206,6 +228,47 @@ def bounce_step(scene, st, rand4, method: str = "bvh",
         "rays": rays,
         "prev_pdf": prev_pdf,
     }
+
+
+def k4_attr_planes(scene, origin: Vec3, direction: Vec3, hit, method: str):
+    """K4's (16, R) attribute planes: `_attr_planes` with the sphere
+    winners' normal, basis, uv and material written in."""
+    attrs = _attr_planes(scene, hit, method)
+    if scene.spheres.count == 0:
+        return attrs
+    g = traverse_cuda.attrs_to_dict(attrs)
+    g["point"] = origin + direction * hit["t"]
+    g = _with_spheres(scene, direction, hit, g)
+    return torch.stack([*(getattr(g[k], c) for k in ("normal", "ng", "tangent", "bitangent")
+                          for c in "xyz"),
+                        g["uv_u"], g["uv_v"], g["mat_id"].to(torch.float32), attrs[15]])
+
+
+def _tail_k4(scene, st, hit, rays, rand4, method, texture_mode, rr, bounce_i, nee, rand2):
+    """bounce_step after the intersection through K4 (`ops/shade_cuda.py`):
+    the attribute planes (sphere winners' written in), one launch from
+    shade to advance, and with nee the shadow rays of the shaded lanes
+    through K1 and the unoccluded ones' contribution added."""
+    o, d = st["origin"], st["direction"]
+    r = o.shape[0]
+    with spans.span("attrs"):
+        attrs = k4_attr_planes(scene, o, d, hit, method)
+    with spans.span("shade", kernel="k4", lanes=r):
+        out = shade_cuda.shade_bounce(scene, st, hit["t"], attrs, rand4, rand2,
+                                      texture_mode=texture_mode, rr=rr,
+                                      gamble=rr and bounce_i >= RR_START, nee=nee)
+    if nee:
+        with spans.span("sync", what="shadow_lanes"):
+            lanes = torch.nonzero(out["shaded"]).squeeze(1)
+        with spans.span("intersect", kind="shadow"):
+            ray = out["shadow"][:, lanes]
+            shot = traverse.intersect_scene(scene, Vec3(ray[0], ray[1], ray[2]),
+                                            Vec3(ray[3], ray[4], ray[5]), method=method)
+        with spans.span("advance"):
+            shade_cuda.nee_add(out, lanes, shot["t"])
+            rays = rays + lanes.numel()
+    return {name: out[name] for name in ("origin", "direction", "throughput", "radiance",
+                                         "active", "prev_pdf")} | {"rays": rays}
 
 
 def _initial_state(origin: Vec3, direction: Vec3) -> dict:

@@ -66,6 +66,49 @@ K2_OPS_PER_RAY = 27
 #: each (38), the blend factor (9), the blend (10) and the encode (6)
 K3_OPS_PER_PIXEL = 14 + 9 + 8 + 8 + 3 + 19 * 2 + 25
 
+#: K4 (csrc/shade.cu: k4_lane), operations per lane of each kind, counted
+#: from the source with each libm routine (powf, sinf, cosf, atan2f, asinf,
+#: sqrtf, rsqrtf, floorf) and each IEEE division as one instruction, so a
+#: floor far below what the card issues. Every lane: the hit test (2), the
+#: hit point (6), the miss test (2), the two radiance sums and their
+#: select (9), the continue test, the next state's selects and the active
+#: flag (11)
+K4_LANE_OPS = 30
+#: a hit: the two dot products (10), their compares and the shaded flag (4)
+K4_HIT_OPS = 14
+#: a shaded lane, its maps aside: the unit normal (11), the material row's
+#: clamp and conversions (8), roughness and metalness (6), the view basis
+#: (54), sample_disney_brdf with both lobes evaluated (372: the VNDF sample
+#: 91, Fresnel 36, the lobe weights 12, the cosine sample 12, the half
+#: vector 23, the diffuse and sheen terms 72, the specular lobe 96, the
+#: pick 18), the world direction (15), the tint, terminate flag and debug
+#: shader (19), the next origin's bias (13)
+K4_SHADED_OPS = 11 + 8 + 6 + 54 + 372 + 15 + 19 + 13
+#: Russian roulette on a shaded lane
+K4_RR_OPS = 18
+#: one map's taps: bilinear (the wrap, the texel index, four taps of 3
+#: conversions and 3 scalings, three lerps) or nearest (one tap)
+K4_TAP_OPS = {"bilinear": 86, "nearest": 24}
+#: what a shaded lane does with each map's colour, in the material row's
+#: MROW_TEX_* order: albedo (the sRGB decode and product), normal (the
+#: tangent-space map and its blend), metal-roughness (2), emissive (as
+#: albedo)
+K4_MAP_OPS = (18, 43, 2, 18)
+#: the equirect background at one direction: its angles (9), the bilinear
+#: taps (86) and the sRGB decode (15); a constant sky costs nothing
+K4_BG_OPS = 110
+#: with NEE, a shaded lane: the light sample (the env table's 36, the
+#: uniform sphere's 10), the light in the basis (15), two eval_disney_brdf
+#: (230 each), the MIS weight and the light's inverse pdf (8), the
+#: contribution and the pdf (8), the shadow ray (13); the background at
+#: the light direction is K4_BG_OPS
+K4_NEE_OPS = {"table": 36 + 15 + 460 + 8 + 8 + 13, "sphere": 10 + 15 + 460 + 8 + 8 + 13}
+#: a miss: its throughput product (3); with NEE also the MIS weight (the env
+#: table's pdf 28 + 8, the uniform sphere's 8)
+K4_MISS_OPS = {"plain": 3, "table": 3 + 36, "sphere": 3 + 8}
+#: the NEE add, per shaded lane: the finite test, three selects and sums
+NEE_ADD_OPS = 8
+
 
 def bound(work: dict) -> dict:
     """The larger of work["bytes"] over the memory rate and work["ops"]
@@ -195,3 +238,65 @@ def k3_work(height: int, width: int) -> dict:
     """K3's bytes (3 in and 3 out per pixel) and operations for one launch."""
     n = height * width
     return {"bytes": 6 * n, "ops": n * K3_OPS_PER_PIXEL}
+
+
+def k4_work(scene, st: dict, t, attrs, shaded, nee: bool, texture_mode: str = "bilinear",
+            rr: bool = False) -> dict:
+    """K4's bytes and operations for one launch over the lanes of the
+    state `st` (as `shade_cuda.shade_bounce` takes them, with the hits' t
+    and attribute planes) given the mask of the lanes it shaded (its
+    output "shaded"). Bytes, each read or written once: every lane's state
+    (the position, direction, throughput and radiance planes, a plane of
+    stride 0 once; active; t; with NEE prev_pdf) and next state (12
+    floats, active and shaded; with NEE prev_pdf); a hit's two normals; a
+    shaded lane's 9 other attribute floats, 3 draws, and per map of its
+    material 4 taps of 3 bytes (nearest: 1); with NEE a shaded lane's 3
+    draws, the alias slot (prob, alias, lum_p: 16 bytes) with an env
+    table, the background's 4 taps at the light under an equirect sky,
+    and its shadow ray and contribution (9 floats); a miss's 4 background
+    taps under an equirect sky and its lum_p with an env table. Not
+    counted: the material rows and the atlas's and env table's small
+    tables (read once per launch), Russian roulette's draw, the waste of
+    texel sectors. Operations: the K4_* counts per lane kind. Returns
+    bytes, ops and the lanes of each kind."""
+    from raytracing_c_tpu_torch.models.scene import BG_EQUIRECT, MROW_TEX_ALBEDO
+
+    active = st["active"]
+    r = active.numel()
+    is_hit = active & torch.isfinite(t)
+    hits, n_shaded = int(is_hit.sum()), int(shaded.sum())
+    misses = int((active & ~is_hit).sum())
+    rows = scene.materials.rows
+    mat = attrs[14][shaded].to(torch.int32).clamp(0, rows.shape[0] - 1).long()
+    maps = (rows[mat][:, MROW_TEX_ALBEDO:MROW_TEX_ALBEDO + 4] >= 0).sum(0).tolist()
+    bg = scene.background
+    equirect = bg.kind == BG_EQUIRECT and bg.tex_id >= 0
+    light = "table" if scene.env_light is not None else "sphere"
+    table = nee and light == "table"
+
+    state = sum(4 * (r if p.stride(0) else 1) for name in ("origin", "direction", "throughput",
+                                                          "radiance")
+                for p in (st[name].x, st[name].y, st[name].z))
+    lane_bytes = 1 + 4 + 48 + 2 + (8 if nee else 0)
+    shaded_bytes = 36 + 12 + ((12 + (16 if table else 0) + (12 if equirect else 0) + 36)
+                              if nee else 0)
+    tap_bytes = 12 if texture_mode == "bilinear" else 3
+    miss_bytes = (12 if equirect else 0) + (4 if table else 0)
+    nbytes = (state + r * lane_bytes + hits * 24 + n_shaded * shaded_bytes
+              + sum(maps) * tap_bytes + misses * miss_bytes)
+
+    ops = (r * K4_LANE_OPS + hits * K4_HIT_OPS
+           + n_shaded * (K4_SHADED_OPS + (K4_RR_OPS if rr else 0))
+           + sum(m * (K4_TAP_OPS[texture_mode] + k) for m, k in zip(maps, K4_MAP_OPS))
+           + misses * ((K4_BG_OPS if equirect else 0) + K4_MISS_OPS[light if nee else "plain"]))
+    if nee:
+        ops += n_shaded * (K4_NEE_OPS[light] + (K4_BG_OPS if equirect else 0))
+    return {"bytes": nbytes, "ops": float(ops), "lanes": r, "hits": hits, "shaded": n_shaded,
+            "misses": misses, "map_taps": maps}
+
+
+def nee_add_work(n_lanes: int) -> dict:
+    """The NEE add's bytes (a lane's index and shadow t, its radiance read
+    and written, its contribution) and operations for one launch over the
+    shaded lanes."""
+    return {"bytes": n_lanes * (8 + 4 + 12 + 12 + 12), "ops": n_lanes * NEE_ADD_OPS}

@@ -18,7 +18,8 @@ both. A span records its name, its host start and end
 (a `render` span opens a frame and a `batch` span a batch; every span
 inside them takes their ids) and its attributes, the counters of that
 boundary (given at the call or noted inside; PERF.md says which reader
-reads each). Records stay in memory until `collect()`.
+reads each). Records stay in memory until `collect()`; `shade_summary`
+reads the `shade` spans' counters.
 
 Off, `span` returns one shared no-op context after one check of a module
 flag: no record_function, no allocation in this module, no sync.
@@ -163,6 +164,23 @@ class timed:
             end = self.span.rec["end"]
         self.seconds = (end - self.start) / 1e9
         return False
+
+
+def shade_summary(records) -> dict:
+    """What the `shade` spans of `records` say of K4, from the kernel
+    (`k4` or `plain`) and lanes each carries: K4's launches a batch (over
+    the records' `batch` spans; None without one) and the lanes shaded
+    through K4 and through the plain tail."""
+    lanes = {"k4": 0, "plain": 0}
+    launches = 0
+    for r in records:
+        if r["name"] == "shade":
+            kernel = r["attrs"].get("kernel", "plain")
+            lanes[kernel] += r["attrs"].get("lanes", 0)
+            launches += kernel == "k4"
+    batches = sum(r["name"] == BATCH for r in records)
+    return {"k4_launches_per_batch": launches / batches if batches else None,
+            "k4_lanes": lanes["k4"], "plain_lanes": lanes["plain"]}
 
 
 def enabled() -> bool:

@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1, K2, K3) on the card against their plain PyTorch
-versions, K1 also on the NEE shadow rays and under render(nee=True).
+"""The CUDA kernels (K1, K2, K3, K4) on the card against their plain
+PyTorch versions, K1 also on the NEE shadow rays and under render(nee=True).
 
 Every test here is marked `cuda` and skips where there is no GPU. The file
 imports neither jax nor the JAX package, so it also runs on a machine with
@@ -10,8 +10,9 @@ only PyTorch; tests/conftest.py imports jax, so run it there without it:
 Tolerance: none. The kernels are built with --fmad=false and repeat the
 plain versions' operation order, so hits and attribute planes are
 bit-equal to the plain versions run on the same card; so are K3's u8
-pixels (it sums the luminances in the plain version's order). The K1
-tests run each of its two kernels (`k1_kernel`).
+pixels (it sums the luminances in the plain version's order) and every
+plane of K4's bounce against the integrator's plain tail (`_tail_plain`)
+on the same lanes. The K1 tests run each of its two kernels (`k1_kernel`).
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ import chip_smoke
 from raytracing_c_tpu_torch.models import scene as ps
 from raytracing_c_tpu_torch.ops import denoise as dn
 from raytracing_c_tpu_torch.ops import env_light
+from raytracing_c_tpu_torch.ops import shade_cuda as sc
 from raytracing_c_tpu_torch.ops import traverse_cuda as tc
 from raytracing_c_tpu_torch.render import camera, integrator
 from raytracing_c_tpu_torch.render.renderer import render
@@ -327,3 +329,197 @@ def test_denoise_bad_input_raises(cuda_device, dtype, shape):
     with pytest.raises(ValueError):
         dn.denoise_u8(torch.zeros(shape, dtype=dtype, device=cuda_device))
     assert dn.denoise_u8.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K4: the bounce's shade, background and advance
+# ---------------------------------------------------------------------------
+
+#: K4's materials: all four maps; untextured; the debug-normal shader;
+#: metallic, anisotropic, albedo map only; emissive with full sheen
+K4_MATERIALS = (
+    dict(base=(0.9, 0.7, 0.5), emi=(1.0, 1.0, 1.0), rough=0.6, metal=0.3, nstr=0.8, sheen=0.5,
+         sheen_tint=0.3, aniso=0.4, tex=(1, 2, 3, 4), kind=0),
+    dict(base=(0.8, 0.8, 0.8), emi=(0.0, 0.0, 0.0), rough=0.9, metal=0.0, nstr=0.0, sheen=0.0,
+         sheen_tint=0.0, aniso=0.0, tex=(-1, -1, -1, -1), kind=0),
+    dict(base=(0.5, 0.5, 0.5), emi=(0.0, 0.0, 0.0), rough=0.5, metal=0.0, nstr=0.0, sheen=0.0,
+         sheen_tint=0.0, aniso=0.0, tex=(-1, 2, -1, -1), kind=ps.SHADER_DEBUG_NORMAL),
+    dict(base=(0.95, 0.6, 0.3), emi=(0.0, 0.0, 0.0), rough=0.05, metal=1.0, nstr=0.0,
+         sheen=0.0, sheen_tint=0.0, aniso=0.9, tex=(1, -1, -1, -1), kind=0),
+    dict(base=(0.2, 0.4, 0.9), emi=(2.0, 1.0, 0.5), rough=0.3, metal=0.0, nstr=0.0, sheen=1.0,
+         sheen_tint=1.0, aniso=0.0, tex=(-1, -1, 3, -1), kind=0),
+)
+
+
+def _k4_scene(device, equirect: bool, table: bool) -> ps.Scene:
+    """A soup of 300 triangles with two spheres, K4_MATERIALS on random
+    textures of odd sizes, under a 96x40 equirect map or a constant sky;
+    with `table` the env light's alias table of that map (set on the scene
+    under a constant sky too)."""
+    rng_ = np.random.default_rng(11)
+    n = 300
+    pos = (rng_.uniform(-1, 1, (n, 1, 3)) + rng_.normal(0, 0.2, (n, 3, 3))).astype(np.float32)
+    ng = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
+    ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+    mesh = ps.HostMesh(pos, np.repeat(ng[:, None], 3, 1).astype(np.float32),
+                       rng_.uniform(-2, 3, (n, 3, 2)).astype(np.float32),
+                       rng_.integers(0, len(K4_MATERIALS), n).astype(np.int32))
+    f = lambda k: torch.tensor([m[k] for m in K4_MATERIALS], dtype=torch.float32)  # noqa: E731
+    i = lambda k, c: torch.tensor([m[k][c] for m in K4_MATERIALS], dtype=torch.int32)  # noqa: E731
+    v = lambda k: Vec3(*(torch.tensor([m[k][c] for m in K4_MATERIALS], dtype=torch.float32)  # noqa: E731
+                         for c in range(3)))
+    table_ = ps.MaterialTable(
+        base_color=v("base"), emission=v("emi"), roughness=f("rough"), metalness=f("metal"),
+        normal_strength=f("nstr"), sheen=f("sheen"), sheen_tint=f("sheen_tint"),
+        anisotropic=f("aniso"), tex_albedo=i("tex", 0), tex_normal=i("tex", 1),
+        tex_mr=i("tex", 2), tex_emission=i("tex", 3),
+        shader_kind=torch.tensor([m["kind"] for m in K4_MATERIALS], dtype=torch.int32),
+    ).with_rows()
+    images = [rng_.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((23, 37), (64, 64), (3, 5), (17, 1))]
+    images.append(chip_smoke.make_env_map(96, 40, seed=3))
+    env_id = len(images)
+    bg = ps.Background.equirect(env_id) if equirect else ps.Background.constant((0.6, 0.7, 0.9))
+    scene = ps.build_scene(mesh, table_, ps.TextureAtlas.pack(images), bg, ps.Camera.default(),
+                           spheres=ps.Spheres.make([[0.3, 0.2, 0.1], [-0.5, 0.4, 0.6]],
+                                                   [0.4, 0.25], [3, 4]),
+                           device=device)
+    if table:
+        scene.env_light = env_light.build_env_light(scene.atlas, env_id)
+    return scene
+
+
+def _k4_lanes(scene, r: int, seed: int, strided: bool, device):
+    """Random lanes entering a bounce's tail: (st, hit, rand4, rand2).
+    Misses (t = inf) and lanes that left, backface lanes (a shading or
+    geometric normal along the ray), sphere winners, every material and
+    none (-1), UVs outside [0, 1), previous pdfs of both kinds. strided:
+    the origin an expanded scalar (bounce 0's) and the uniforms rows of a
+    transposed (R, 7) draw (trace_bucketed's), else contiguous planes."""
+    g = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa: E731
+
+    def unit(k):
+        a = g.normal(size=(k, 3))
+        return a / np.linalg.norm(a, axis=-1, keepdims=True)
+
+    d = unit(r)
+    ng = unit(r)
+    face = g.random(r) < 0.7  # most geometric normals face the ray
+    ng[face] = -np.sign((ng * d).sum(-1, keepdims=True))[face] * ng[face]
+    nrm = ng + 0.4 * unit(r)
+    flip = g.random(r) < 0.1  # shading normal along the ray
+    nrm[flip] = -nrm[flip]
+    nrm *= g.uniform(0.5, 1.5, (r, 1))
+    attrs = np.zeros((16, r), np.float32)
+    attrs[0:3], attrs[3:6] = nrm.T, ng.T
+    attrs[6:9], attrs[9:12] = unit(r).T, unit(r).T
+    attrs[12:14] = g.uniform(-3.0, 4.0, (2, r))
+    attrs[14] = g.integers(-1, len(K4_MATERIALS), r)
+    hit_t = g.uniform(0.05, 4.0, r).astype(np.float32)
+    hit_t[g.random(r) < 0.2] = np.inf
+    sph = np.where(g.random(r) < 0.1, g.integers(0, scene.spheres.count, r), -1)
+    sph[~np.isfinite(hit_t)] = -1
+    prev = g.uniform(0.0, 5.0, r).astype(np.float32)
+    prev[g.random(r) < 0.3] = np.inf
+    draws = g.random((r, 7)).astype(np.float32)
+    if strided:
+        o = Vec3(*(torch.tensor(float(c), device=device).expand(r) for c in g.uniform(-2, 2, 3)))
+        rand = torch.from_numpy(draws).to(device).T
+    else:
+        o = Vec3(*(t(c) for c in g.uniform(-2, 2, (3, r))))
+        rand = t(draws.T)
+    st = {
+        "origin": o, "direction": Vec3(*(t(c) for c in d.T)),
+        "throughput": Vec3(*(t(c) for c in g.uniform(0.0, 1.5, (3, r)))),
+        "radiance": Vec3(*(t(c) for c in g.uniform(0.0, 3.0, (3, r)))),
+        "active": torch.from_numpy(g.random(r) < 0.92).to(device),
+        "rays": torch.zeros((), dtype=torch.int64, device=device),
+        "prev_pdf": t(prev),
+    }
+    hit = {"t": t(hit_t), "attrs": t(attrs),
+           "sph": torch.from_numpy(sph.astype(np.int32)).to(device)}
+    return st, hit, rand[:4], rand[4:]
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("equirect,table", [(True, True), (True, False), (False, True),
+                                            (False, False)])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("nee", [False, True])
+def test_k4_matches_the_plain_tail(cuda_device, nee, rr, mode, equirect, table):
+    """K4 (`integrator._tail_k4`) against the plain tail on the same lanes,
+    both on the card: every plane of the next state, the radiance after
+    the NEE add and the ray count, bit for bit."""
+    from raytracing_c_tpu_torch.render import integrator as it
+
+    scene = _k4_scene(cuda_device, equirect, table)
+    for strided in (True, False):
+        st, hit, rand4, rand2 = _k4_lanes(scene, 5000, 7 + strided, strided, cuda_device)
+        rays = st["rays"] + st["active"].sum()
+        args = (rays, rand4, "bvh", mode, rr, 3, nee, rand2 if nee else None)
+        before = sc.shade_bounce.launches
+        got = it._tail_k4(scene, st, hit, *args)
+        # the plain tail takes bounce_step's hit test with the hits
+        plain_hit = {**hit, "is_hit": st["active"] & torch.isfinite(hit["t"])}
+        want = it._tail_plain(scene, st, plain_hit, *args)
+        torch.cuda.synchronize()
+        assert sc.shade_bounce.launches == before + 1
+        for name in ("origin", "direction", "throughput", "radiance"):
+            for c in "xyz":
+                a, b = getattr(got[name], c), getattr(want[name], c)
+                assert torch.equal(_bits(a), _bits(b)), (name, c, strided,
+                                                          int((_bits(a) != _bits(b)).sum()))
+        for name in ("active", "prev_pdf", "rays"):
+            assert torch.equal(_bits(got[name]), _bits(want[name])), (name, strided)
+        act = want["active"]
+        assert 0.2 < float(act.float().mean()) < 0.95  # lanes of every kind
+        if nee:
+            assert int(got["rays"]) > int(st["active"].sum())
+
+
+def test_k4_through_render_matches_the_plain_tail(cuda_device, monkeypatch):
+    """render() with NEE, Russian roulette and the compacted tracer: the
+    frame through K4 equals the frame through the plain tail on the card,
+    and every bounce went through K4."""
+    from raytracing_c_tpu_torch.render import integrator as it
+
+    scene = _k4_scene(cuda_device, True, False)
+    kw = dict(spp=2, max_bounces=5, seed=3, nee=True, rr=True)
+    before = sc.shade_bounce.launches
+    img_k, st_k = render(scene, 40, 32, **kw)
+    assert sc.shade_bounce.launches > before
+    monkeypatch.setattr(it, "_tail_k4", it._tail_plain)
+    img_p, st_p = render(scene, 40, 32, **kw)
+    np.testing.assert_array_equal(img_k, img_p)
+    assert st_k.rays_traced == st_p.rays_traced
+
+
+def _k4_call(scene, st, hit, rand4):
+    return sc.shade_bounce(scene, st, hit["t"], hit["attrs"], rand4)
+
+
+@pytest.mark.parametrize("fault", ["cpu", "float64_plane", "attrs_rows", "rows_layout"])
+def test_k4_bad_input_raises(cuda_device, fault):
+    scene = _k4_scene(cuda_device, False, False)
+    st, hit, rand4, _ = _k4_lanes(scene, 256, 1, False, cuda_device)
+    if fault == "cpu":
+        st = {k: (v.map(lambda a: a.cpu()) if isinstance(v, Vec3) else v.cpu())
+              for k, v in st.items()}
+        hit = {k: v.cpu() for k, v in hit.items()}
+        rand4 = rand4.cpu()
+    elif fault == "float64_plane":
+        st["throughput"] = st["throughput"].map(lambda a: a.double())
+    elif fault == "attrs_rows":
+        hit["attrs"] = hit["attrs"][:15]
+    else:
+        rows = scene.materials.rows
+        scene.materials.rows = torch.zeros((rows.shape[0], 256), device=cuda_device)[:, ::2]
+    before = sc.shade_bounce.launches
+    with pytest.raises(ValueError):
+        _k4_call(scene, st, hit, rand4)
+    assert sc.shade_bounce.launches == before

@@ -184,3 +184,43 @@ def test_render_nee_builds_the_env_table(scenes):
     img, _ = tren.render(fresh, 16, 16, **kw)
     assert isinstance(fresh.env_light, tel.EnvLight)
     np.testing.assert_array_equal(img, tren.render(ts, 16, 16, **kw)[0])
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_k4_work_counts_each_lane_kind(rng, nee):
+    """utils/bounds.k4_work, K4's bytes and operations for its bound, on
+    four lanes under the equirect sky and its env table: one that left,
+    one miss, one shaded hit of material 0 (albedo and normal maps) and
+    one backface hit. Each kind counts once, the shaded lane per map of
+    its material, the position's stride-0 planes once, NEE's terms only
+    with NEE."""
+    from raytracing_c_tpu_torch.utils import bounds as b
+    from raytracing_c_tpu_torch.utils.vec3 import Vec3
+
+    tex = [rng.integers(0, 256, (9, 14, 3), dtype=np.uint8) for _ in range(2)]
+    mesh = random_mesh(4, rng)
+    mesh.mat_id = np.zeros(4, np.int32)
+    _, ts = _equirect(rng, mesh, _materials(), tex)
+    planes = lambda: Vec3(*(torch.rand(4) for _ in range(3)))  # noqa: E731
+    st = {"origin": Vec3(*(torch.tensor(0.5).expand(4) for _ in range(3))),
+          "direction": planes(), "throughput": planes(), "radiance": planes(),
+          "active": torch.tensor([False, True, True, True]),
+          "prev_pdf": torch.ones(4)}
+    t = torch.tensor([1.0, float("inf"), 2.0, 2.0])
+    attrs = torch.zeros((16, 4))
+    shaded = torch.tensor([False, False, True, False])
+    work = b.k4_work(ts, st, t, attrs, shaded, nee)
+    assert (work["lanes"], work["hits"], work["shaded"], work["misses"]) == (4, 2, 1, 1)
+    assert work["map_taps"] == [1, 1, 0, 0]
+    state = 3 * 4 + 9 * 4 * 4
+    nee_bytes = 4 * 8 + (12 + 16 + 12 + 36) + 4
+    assert work["bytes"] == (state + 4 * 55 + 2 * 24 + (36 + 12) + 2 * 12 + 12
+                             + (nee_bytes if nee else 0))
+    ops = (4 * b.K4_LANE_OPS + 2 * b.K4_HIT_OPS + b.K4_SHADED_OPS
+           + 2 * b.K4_TAP_OPS["bilinear"] + b.K4_MAP_OPS[0] + b.K4_MAP_OPS[1] + b.K4_BG_OPS)
+    ops += (b.K4_NEE_OPS["table"] + b.K4_BG_OPS + b.K4_MISS_OPS["table"] if nee
+            else b.K4_MISS_OPS["plain"])
+    assert work["ops"] == ops
+    nearest = b.k4_work(ts, st, t, attrs, shaded, nee, texture_mode="nearest")
+    assert work["bytes"] - nearest["bytes"] == 2 * 9
+    assert b.nee_add_work(10) == {"bytes": 480, "ops": 10 * b.NEE_ADD_OPS}

@@ -187,6 +187,28 @@ def test_cli_profile_trace_holds_the_layers(model_dir, monkeypatch, spans_off):
     assert not spans.enabled()
 
 
+def test_shade_span_names_its_kernel_and_lanes(scene, model_dir, monkeypatch, spans_off,
+                                              capsys):
+    """On the CPU every bounce shades through the plain tail: each `shade`
+    span carries kernel "plain" and the lanes of its bounce, and the
+    summary (and the CLI's --profile line) counts them, none through K4."""
+    (_, stats), recs = _recorded(lambda: render(scene, 16, 12, **SMALL))
+    shade = [r["attrs"] for r in recs if r["name"] == "shade"]
+    lanes = [r["attrs"]["lanes"] for r in recs if r["name"] == "bounce"]
+    assert shade and [a["kernel"] for a in shade] == ["plain"] * len(lanes)
+    assert [a["lanes"] for a in shade] == lanes
+    assert spans.shade_summary(recs) == {"k4_launches_per_batch": 0.0, "k4_lanes": 0,
+                                         "plain_lanes": sum(lanes)}
+    assert spans.shade_summary([])["k4_launches_per_batch"] is None
+    monkeypatch.chdir(model_dir)
+    assert cli.main(["-W", "8", "-H", "8", "-S", "1", "-B", "2", "--profile", "sprof",
+                     "-O", "s.png", "standin.obj"], device="cpu") == 0
+    line = [x for x in capsys.readouterr().err.splitlines() if x.startswith("spans: shade")]
+    # an 8x8 frame at 1 spp: 64 camera lanes, then those of bounce 1
+    assert len(line) == 1 and "through K4 0, through the plain tail " in line[0]
+    assert 64 < int(line[0].rsplit(" ", 1)[1]) <= 128
+
+
 def test_loaders_record_their_stages(model_dir, spans_off):
     _, recs = _recorded(lambda: load_scene(str(model_dir / "standin.obj"),
                                            background_path=str(model_dir / "background.png"),
