@@ -469,14 +469,18 @@ def build_scene(
 ) -> Scene:
     """scene_init (scene.c:416-426): build the BVH (`sah` picks the splitter,
     `models/bvh.py:build_bvh`) and pack the SoA store on the host, then put
-    the scene on `device`. Spans: `bvh` (the build and the packing),
-    `upload`, and K1's `k1_tables` on a GPU."""
+    the scene on `device`. Spans: `bvh` (the build and the packing; its
+    triangles, depth, slots and occupied leaf blocks), `upload`, and K1's
+    `k1_tables` on a GPU."""
     from raytracing_c_tpu_torch.models.bvh import build_bvh
 
     dev = resolve_device(device)
     with spans.span("bvh"):
-        bvh, slot_map, _capacity = build_bvh(mesh, sah)
+        bvh, slot_map, capacity = build_bvh(mesh, sah)
         triangles = pack_triangles(mesh, slot_map)
+        if spans.enabled():
+            spans.note(triangles=int(mesh.positions.shape[0]), depth=bvh.depth, slots=capacity,
+                       blocks=int((slot_map.reshape(-1, BVH_WIDTH) >= 0).any(1).sum()))
     with spans.span("upload"):
         scene = Scene(
             triangles=triangles,

@@ -105,15 +105,16 @@ def intersect_bvh_culled(origin: Vec3, direction: Vec3, triangles, bvh, active=N
     slot of the leaves reached through Moller-Trumbore, as the brute-force
     oracle computes each test. The nearest hit wins, ties to the lowest
     triangle id; only hits closer than t_max count; misses and inactive
-    lanes return t = +inf, tri = -1, u = v = 0. It equals
-    `intersect_bruteforce_chunked` wherever each hit lies inside its
-    leaf's padded box, as it does for K1 and the JAX package's traversals,
-    and costs a few leaves per ray instead of every triangle. Rays go
-    CULLED_RAY_CHUNK at a time."""
+    lanes return t = +inf, tri = -1, u = v = 0. The boxes are K1's
+    (`traverse_cuda.walk_boxes`: each holds every point the test accepts
+    on its triangles), so it equals `intersect_bruteforce_chunked` but
+    where an origin lies on the plane of a slab its ray runs along
+    (`aabb_slab`), and costs a few leaves per ray instead of every
+    triangle. Rays go CULLED_RAY_CHUNK at a time."""
     r = origin.shape[0]
     dev = origin.x.device
     n_internal = bvh.n_internal
-    boxes = bvh.nodes[:, :6 * W].reshape(n_internal, 6, W)
+    boxes = traverse_cuda.walk_boxes(bvh, triangles)
     inv = Vec3(1.0 / direction.x, 1.0 / direction.y, 1.0 / direction.z)
     lane = torch.arange(W, device=dev)
     best_t = torch.full((r,), INF, device=dev)

@@ -33,7 +33,7 @@ from dataclasses import dataclass
 
 import torch
 
-from raytracing_c_tpu_torch import BVH_WIDTH
+from raytracing_c_tpu_torch import BVH_WIDTH, EPSILON
 from raytracing_c_tpu_torch.ops import cuda_build
 from raytracing_c_tpu_torch.utils import spans
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
@@ -151,7 +151,7 @@ class K1Tables:
       per child, occupied children first in their original order:
       [center.xyz, half.x], [half.yz, ref, 0], the child box as its center
       and half-extent, rounded outward so that [center - half, center +
-      half] holds the box of `BVH.nodes`. ref is an int32:
+      half] holds the child's `accept_boxes` box. ref is an int32:
       an internal child c as c << 8 | its occupancy mask, a leaf block as
       LEAF_BIT | first << 4 | count, its triangles being tris records
       first..first+count-1. Empty slots are zero: the one-thread kernel
@@ -198,12 +198,74 @@ def occupancy(leaf_rows: torch.Tensor, n_internal: int, depth: int):
     return slot_occ, occ
 
 
+def accept_boxes(nodes: torch.Tensor, leaf_rows: torch.Tensor, n_internal: int,
+                 depth: int) -> torch.Tensor:
+    """Each internal node's child boxes, (n_internal, 8, 6) float64 of
+    min.xyz, max.xyz: `BVH.nodes`' boxes grown to hold every point that
+    Moller-Trumbore accepts on the child's occupied slots, padded by
+    EPSILON as the build pads.
+
+    The test takes u, v >= -EPSILON and u + v <= 1 + EPSILON: the triangle
+    grown by EPSILON in barycentric terms, which reaches EPSILON times its
+    edges beyond it, farther than the build's EPSILON padding
+    (`models/bvh.py`) for edges longer than about a third of a unit. A walk
+    of the build's boxes misses such a hit, or a lower-id hit at an equal
+    t, that the brute-force oracle finds (two slab triangles of the Sponza
+    stand-in, 1.5 m across, share an edge so). The grown triangle is
+    bounded by (u, v) = (-e, -e), (1 + 2e, -e), (-e, 1 + 2e)."""
+    e = EPSILON
+    s = _leaf_slots(leaf_rows).double()  # (n_blocks, 8, 9)
+    v0, e1, e2 = s[..., 0:3], s[..., 3:6], s[..., 6:9]
+    corners = torch.stack([v0 - e * e1 - e * e2, v0 + (1 + 2 * e) * e1 - e * e2,
+                           v0 - e * e1 + (1 + 2 * e) * e2])
+    occ = (s != 0).any(-1)[..., None]
+    lo = torch.where(occ, corners.min(0).values - e, INF).min(1).values  # (n_blocks, 3)
+    hi = torch.where(occ, corners.max(0).values + e, -INF).max(1).values
+    dev = leaf_rows.device
+    child = W * torch.arange(n_internal, device=dev)[:, None] + 1 + torch.arange(W, device=dev)
+    grown = torch.empty((n_internal, W, 6), dtype=torch.float64, device=dev)
+    for level in reversed(range(depth)):  # bottom-up, one level at a time
+        first, n = (W**level - 1) // (W - 1), W**level
+        c = child[first:first + n]
+        if level == depth - 1:
+            grown[first:first + n, :, :3], grown[first:first + n, :, 3:] = \
+                lo[c - n_internal], hi[c - n_internal]
+        else:
+            grown[first:first + n, :, :3] = grown[c, :, :3].min(2).values
+            grown[first:first + n, :, 3:] = grown[c, :, 3:].max(2).values
+    box = nodes[:, :6 * W].reshape(n_internal, 6, W).transpose(1, 2).double()
+    return torch.cat([torch.minimum(box[..., :3], grown[..., :3]),
+                      torch.maximum(box[..., 3:], grown[..., 3:])], -1)
+
+
+def walk_boxes(bvh, triangles) -> torch.Tensor:
+    """`accept_boxes` as `BVH.nodes` lays its rows out ((n_internal, 6, 8):
+    min.xyz, max.xyz by child), float32 rounded outward: the boxes the
+    host's walk (`ops/traverse.py:intersect_bvh_culled`) tests. Built at
+    the first call and cached on the BVH, as `k1_tables` is."""
+    nodes, leaf_rows = bvh.nodes, triangles.leaf_rows
+    c = getattr(bvh, "_walk_boxes", None)
+    if c is not None and c[0] is nodes and c[1] == nodes._version \
+            and c[2] is leaf_rows and c[3] == leaf_rows._version:
+        return c[4]
+    box = accept_boxes(nodes, leaf_rows, bvh.n_internal, bvh.depth)
+    lo, hi = box[..., :3].float(), box[..., 3:].float()
+    lo = torch.where(lo.double() > box[..., :3], torch.nextafter(lo, torch.full_like(lo, -INF)),
+                     lo)
+    hi = torch.where(hi.double() < box[..., 3:], torch.nextafter(hi, torch.full_like(hi, INF)),
+                     hi)
+    out = torch.cat([lo, hi], -1).transpose(1, 2).contiguous()
+    bvh._walk_boxes = (nodes, nodes._version, leaf_rows, leaf_rows._version, out)
+    return out
+
+
 def build_k1_tables(nodes: torch.Tensor, leaf_rows: torch.Tensor, n_internal: int,
                     depth: int) -> K1Tables:
     """K1's tables from the scene's `BVH.nodes` (n_internal, 128) and
     `Triangles.leaf_rows` (8**depth, 128), on their device. Only occupied
     children and slots (`occupancy`) go into them, so skipping the rest
-    loses no hit."""
+    loses no hit; the child boxes are `accept_boxes`', so that every hit
+    the oracle accepts lies inside its leaf's box."""
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"K1 tables: depth {depth} outside [1, {MAX_DEPTH}]")
     with spans.timed("k1_tables") as clock:
@@ -226,7 +288,7 @@ def build_k1_tables(nodes: torch.Tensor, leaf_rows: torch.Tensor, n_internal: in
         ref = torch.where(is_leaf, LEAF_BIT | (start[blk] << 4) | count[blk],
                           (child << 8) | (2 ** cnt[child.clamp(max=n_internal - 1)] - 1))
         rec = torch.zeros((n_internal, W, 8), dtype=torch.int32, device=dev)
-        box = nodes[:, :6 * W].reshape(n_internal, 6, W).transpose(1, 2).double()
+        box = accept_boxes(nodes, leaf_rows, n_internal, depth)
         center = ((box[..., :3] + box[..., 3:]) * 0.5).float()
         c64 = center.double()
         half64 = torch.maximum(box[..., 3:] - c64, c64 - box[..., :3])  # exact in float64

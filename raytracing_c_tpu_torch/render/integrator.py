@@ -33,7 +33,9 @@ kernel it ran and its rays), `attrs`, `shade` (kernel `k4` or `plain` and
 the lanes it shades), `background` and `advance` (the plain tail's; K4's
 path keeps `advance` for the NEE add) and `compact`, and a `sync` around
 each host read of device data (`what`: `compaction`, `shadow_lanes`,
-`active_any`).
+`active_any`). The NEE shadow test tallies the shadow rays it launched and
+those that hit something (`shadow_rays`, `shadow_occluded`) on the frame's
+`render` span, counted on the device and read when that span closes.
 """
 
 from __future__ import annotations
@@ -190,6 +192,9 @@ def _tail_plain(scene, st, hit, rays, rand4, method, texture_mode, rr, bounce_i,
         with spans.span("advance"):
             lit = torch.zeros_like(shaded).index_fill_(
                 0, lanes[~torch.isfinite(shot["t"])], True)
+            if spans.enabled():
+                spans.tally(shadow_rays=lanes.numel(),
+                            shadow_occluded=torch.isfinite(shot["t"]).sum())
             radiance = radiance + Vec3.where(lit, st["throughput"] * out["nee_partial"], zero)
             rays = rays + lanes.numel()
 
@@ -266,6 +271,9 @@ def _tail_k4(scene, st, hit, rays, rand4, method, texture_mode, rr, bounce_i, ne
                                             Vec3(ray[3], ray[4], ray[5]), method=method)
         with spans.span("advance"):
             shade_cuda.nee_add(out, lanes, shot["t"])
+            if spans.enabled():
+                spans.tally(shadow_rays=lanes.numel(),
+                            shadow_occluded=torch.isfinite(shot["t"]).sum())
             rays = rays + lanes.numel()
     return {name: out[name] for name in ("origin", "direction", "throughput", "radiance",
                                          "active", "prev_pdf")} | {"rays": rays}

@@ -18,8 +18,10 @@ both. A span records its name, its host start and end
 (a `render` span opens a frame and a `batch` span a batch; every span
 inside them takes their ids) and its attributes, the counters of that
 boundary (given at the call or noted inside; PERF.md says which reader
-reads each). Records stay in memory until `collect()`; `shade_summary`
-reads the `shade` spans' counters.
+reads each). A counter that lives on the device is `spans.tally(...)`ed
+into the open `render` span: summed there without a sync and read once,
+when that span closes, into its attributes. Records stay in memory until
+`collect()`; `shade_summary` reads the `shade` spans' counters.
 
 Off, `span` returns one shared no-op context after one check of a module
 flag: no record_function, no allocation in this module, no sync.
@@ -113,7 +115,20 @@ class _Span:
         if self.rf is not None:
             self.rf.__exit__(None, None, None)
         _open.pop()
+        if "_tally" in rec:
+            _read_tally(rec)
         return False
+
+
+def _read_tally(rec) -> None:
+    """A closed span's tallies into its attributes: the device's counters
+    read together, with one sync."""
+    tally = rec.pop("_tally")
+    dev = {k: v for k, v in tally.items() if isinstance(v, torch.Tensor)}
+    if dev:
+        vals = torch.stack([v.to(torch.int64).reshape(()) for v in dev.values()]).tolist()
+        tally.update(zip(dev, vals))
+    rec["attrs"].update(tally)
 
 
 def span(name: str, **attrs):
@@ -131,6 +146,21 @@ def note(**attrs) -> None:
     off or outside every span."""
     if _on and _open:
         _open[-1]["attrs"].update(attrs)
+
+
+def tally(**counts) -> None:
+    """Add counters (python ints or 0-d integer tensors, on any device) to
+    those of the innermost open `render` span, which reads them when it
+    closes (`_read_tally`); nothing while off or outside a render span.
+    The sums stay on their device until then."""
+    if not _on:
+        return
+    for rec in reversed(_open):
+        if rec["name"] == FRAME:
+            t = rec.setdefault("_tally", {})
+            for k, v in counts.items():
+                t[k] = t[k] + v if k in t else v
+            return
 
 
 class timed:

@@ -297,7 +297,9 @@ def test_rewalk_finds_the_bruteforce_hits_far_from_the_origin(far, kernel):
 @pytest.mark.parametrize("which", ["soup", "standin"])
 def test_tables_are_conservative_and_skip_empty_children(soup, standin, which):
     """Each child record's box (center +- half-extent) contains the exact
-    child box and exceeds it by a rounding at most, its reference names
+    child box grown to what the triangle test accepts (`accept_boxes`,
+    itself holding the BVH's box) and exceeds it by a rounding at most,
+    its reference names
     the right child with that child's occupancy, and exactly the children
     whose subtree holds a triangle are there, in their original order."""
     scene = soup[0] if which == "soup" else standin[0]
@@ -307,7 +309,8 @@ def test_tables_are_conservative_and_skip_empty_children(soup, standin, which):
     nodes = tables.nodes.numpy().reshape(n_int, 8, 8)
     refs = tables.nodes.view(torch.int32).numpy().reshape(n_int, 8, 8)[:, :, 6]
     refs = refs.astype(np.int64) & 0xFFFFFFFF
-    box = bvh.nodes.numpy()[:, :48].reshape(n_int, 6, 8).transpose(0, 2, 1)
+    built = bvh.nodes.numpy()[:, :48].reshape(n_int, 6, 8).transpose(0, 2, 1)
+    box = tc.accept_boxes(bvh.nodes, tris.leaf_rows, n_int, bvh.depth).numpy()
     slots = tris.leaf_rows.numpy()[:, :72].reshape(-1, 9, 8).transpose(0, 2, 1)
     slot_occ = (slots != 0).any(-1)
 
@@ -328,6 +331,8 @@ def test_tables_are_conservative_and_skip_empty_children(soup, standin, which):
         center = nodes[e, :k, 0:3].astype(np.float64)
         half = nodes[e, :k, 3:6].astype(np.float64)
         assert (half >= 0).all()
+        assert (box[e, js, 0:3] <= built[e, js, 0:3]).all()
+        assert (box[e, js, 3:6] >= built[e, js, 3:6]).all()
         assert (center - half <= box[e, js, 0:3]).all() and (center + half >= box[e, js, 3:6]).all()
         # and not by more than a rounding: the decoded box is the exact one
         np.testing.assert_allclose(center - half, box[e, js, 0:3], rtol=0, atol=1e-6)
