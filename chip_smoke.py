@@ -130,7 +130,14 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    from the last batch returns it 4 times; (d) render() at 256x256, 4
    spp under every JAX method name: the names mapped to K1 byte-equal to
    method="bvh", "brute" within PSNR_MIN, an unknown name a ValueError.
-   Prints each case's wall time and the phase's.
+   Prints each case's wall time and the phase's;
+14. K5's threefry draws (csrc/rng.cu) on the card: `bounce_uniforms` at
+   the render batch's lanes entering bounces 0, 1, 2 and 7 (K5_LANES) at
+   nu 3 and 7, and the batch draws (fold_in, split, the jitter's and the
+   dense tracer's uniforms, a bounded uniform), each against the plain
+   int64 version run on the same card (every word bit-equal), timed
+   (`device_ms`) with its bound (`bounds.k5_*_work`) beside the plain
+   version's wall; then a compacted render batch's draws summed.
 
 After phase 4, `chip_smoke.py --flagship-only SPP` renders phase 4's frame
 in a fresh process that has never started a profiler, then once more
@@ -156,7 +163,10 @@ wall, its host dispatch included) and bound_ms, "nee" the same with NEE,
 batch_ms and batch_ms_nee (the 8 launches' device ms summed) beside
 their bounds, "per_bounce" each launch's lanes, shaded lanes, map taps,
 ms and bound (bytes_ms, ops_ms), and "spans" the two frames' counters;
-nee_add has bounce 0's NEE lanes, their ms and bound. "launches" are phase
+nee_add has bounce 0's NEE lanes, their ms and bound; rng_bounce_uniforms
+(K5) has the 262,144-lane nu = 3 draw's, "draws" phase 14's rows (draw,
+ms, plain_ms, bound_ms, bound_by, differing), "batch_ms" a batch's draws
+and its other kernels' launches in phases 8 and 7. "launches" are phase
 8's (the NEE path), "launches_without_nee" phase 7's, "launches_mesh_nccl"
 and "launches_mesh_gloo" each rank's in phase 10's flagship renders (a)
 and (b), "launches_parity" phase 11's, "launches_viz" phase 12's
@@ -1529,6 +1539,79 @@ def phase13_batch_api(np, torch, scene, img4, spp, reset_counts, counts, failure
     return c8
 
 
+#: phase 14's lane counts: the render batch's lanes entering bounces 0, 1, 2
+#: and 7 (PERF.md section 5)
+K5_LANES = (262_144, 203_896, 49_857, 1_871)
+
+
+def phase14_k5(torch, failures, reps: int = 20) -> dict:
+    """Phase 14 (module docstring): K5's draws at the main path's widths on
+    the card, each against the plain int64 version run on the same card
+    (every word bit-equal), timed with its bound (`bounds.k5_*_work`) and
+    beside the plain version's wall. Returns the kernels line's figures."""
+    from raytracing_c_tpu_torch.ops import rng_cuda
+    from raytracing_c_tpu_torch.utils import bounds, rng
+
+    dev = torch.device("cuda", 0)
+    key = rng.fold_in(rng.prng_key(0, dev), 5)
+    k1 = rng.fold_in(key, 1)
+    order = torch.randperm(BATCH_RAYS, generator=torch.Generator().manual_seed(14))
+    rows, err = [], 0
+
+    def run(label, kernel, k5, plain, work):
+        nonlocal err
+        got, want = k5(), plain()
+        torch.cuda.synchronize()
+        a = got.view(torch.int32) if got.dtype == torch.float32 else got
+        w = want.contiguous()
+        w = w.view(torch.int32) if w.dtype == torch.float32 else w
+        bad = int((a != w).sum()) if a.shape == w.shape else -1
+        err = max(err, abs(bad))
+        ms = device_ms(torch, k5, reps, kernel)
+        plain_ms = cuda_ms(torch, plain, 3)
+        b = bounds.bound(work)
+        row = {"draw": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+               "bound_by": b["bound_by"], "differing": bad}
+        rows.append(row)
+        ok = bad == 0
+        print(f"phase14 K5 {label}: bit_equal_to_plain={ok} differing={bad} "
+              f"device_ms={ms:.5f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}; bytes "
+              f"{work['bytes']} {b['bytes_ms']:.5f} ms, operations {work['ops']:.4g} "
+              f"{b['ops_ms']:.5f} ms) share {b['bound_ms'] / ms:.3f} plain_ms={plain_ms:.3f} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"K5 {label}")
+        return row
+
+    for lanes in K5_LANES:
+        slot = order[:lanes].sort().values.to(dev)  # compaction keeps the slots' order
+        for nu in (3, 7):
+            run(f"bounce_uniforms lanes={lanes} nu={nu}", "k5_bounce_uniforms_kernel",
+                lambda: rng_cuda.bounce_uniforms(k1, slot, 2, nu),
+                lambda: rng._bounce_uniforms_plain(k1, slot, 2, nu),
+                bounds.k5_bounce_work(lanes, nu))
+    # the batch draws (renderer.py: render_batch_indexed, _draw_uniforms, render_batch)
+    run("fold_in(key, b)", "k5_fold_in_kernel", lambda: rng_cuda.fold_in(key, 57),
+        lambda: rng._fold_in_plain(key, 57), bounds.k5_key_work(1))
+    run("split(key)", "k5_split_kernel", lambda: rng_cuda.split(key),
+        lambda: rng._split_plain(key, 2), bounds.k5_key_work(2))
+    for shape in ((2, BATCH_RAYS), (BOUNCES, 4, BATCH_RAYS), (BOUNCES, 3, BATCH_RAYS)):
+        run(f"uniform{shape}", "k5_bits_kernel", lambda: rng_cuda.uniform(key, shape),
+            lambda: rng._uniform_plain(key, shape), bounds.k5_uniform_work(math.prod(shape)))
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    run(f"uniform(3, {BATCH_RAYS}) on normal's bounds", "k5_bits_kernel",
+        lambda: rng_cuda.uniform(key, (3, BATCH_RAYS), lo, 1.0),
+        lambda: rng._uniform_plain(key, (3, BATCH_RAYS), lo, 1.0),
+        bounds.k5_uniform_work(3 * BATCH_RAYS))
+    by = {r["draw"]: r for r in rows}
+    batch = (2 * by["fold_in(key, b)"]["ms"] + by["split(key)"]["ms"]
+             + by[f"uniform{(2, BATCH_RAYS)}"]["ms"]
+             + sum(by[f"bounce_uniforms lanes={n} nu=3"]["ms"] for n in K5_LANES))
+    print(f"phase14 K5 a compacted render batch's draws (4 a batch, the bounces at "
+          f"{', '.join(map(str, K5_LANES))} lanes): device_ms={batch:.5f}", flush=True)
+    return {"err": err, "rows": rows, "batch_ms": batch}
+
+
 def fresh_flagship(spp: int) -> dict:
     """The flagship render() (phase 4's frame, warm-up and all) in a fresh
     Python process, first with no profiler ever started, then again after
@@ -1590,7 +1673,7 @@ def main(argv) -> int:
         from raytracing_c_tpu_torch.ops import cuda_build
         from raytracing_c_tpu_torch.ops import denoise as dn
         from raytracing_c_tpu_torch.ops import env_light
-        from raytracing_c_tpu_torch.ops import shade_cuda
+        from raytracing_c_tpu_torch.ops import rng_cuda, shade_cuda
         from raytracing_c_tpu_torch.ops import traverse_cuda as tc
         from raytracing_c_tpu_torch.parallel import launch
         from raytracing_c_tpu_torch.render import lightmap, renderer
@@ -1606,10 +1689,11 @@ def main(argv) -> int:
         tc.reset_launch_counts()
         dn.denoise_u8.launches = 0
         shade_cuda.reset_launch_counts()
+        rng_cuda.reset_launch_counts()
 
     def counts():
         return {**tc.launch_counts(), "denoise_u8": dn.denoise_u8.launches,
-                **shade_cuda.launch_counts()}
+                **shade_cuda.launch_counts(), **rng_cuda.launch_counts()}
 
     t_start = time.perf_counter()
     failures = []
@@ -1986,6 +2070,9 @@ def main(argv) -> int:
     # --- phase 13: render()'s batch loop, the batch API, the JAX method names ---
     launches13 = phase13_batch_api(np, torch, scene_d, img, spp, reset_counts, counts, failures)
 
+    # --- phase 14: K5's threefry draws at the main path's widths ---
+    k5 = phase14_k5(torch, failures)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", flush=True)
@@ -2032,6 +2119,12 @@ def main(argv) -> int:
          "spans": {"render": k4["spans_render"], "nee": k4["spans_nee"]}},
         {**entry("nee_add", k4_src, k4_replaces, k4["err"], k4["nee_add"]["ms"], None,
                  k4["nee_add"]), "lanes": k4["nee_add"]["lanes"]},
+        {**entry("rng_bounce_uniforms", "raytracing_c_tpu_torch/csrc/rng.cu",
+                 "none: the JAX package draws through jax.random", k5["err"],
+                 k5["rows"][0]["ms"], k5["rows"][0]["plain_ms"], k5["rows"][0]),
+         "draws": k5["rows"], "batch_ms": k5["batch_ms"],
+         **{f"launches_{n}": {"phase8": launches8[n], "phase7": launches7[n]}
+            for n in ("rng_fold_in", "rng_split", "rng_bits")}},
     ]
     print(json.dumps({"parity": {"gpu": gpu, **parity,
                                  "flagship_fresh_process": fresh,

@@ -19,7 +19,9 @@ the chrome trace to DIR/trace.json: the layers (`load`, `decode`, `bvh`,
 `render`, `batch`, `bounce`, `intersect`, `shade`, `sync`, ...) sit on the
 timeline above the kernels they launch, and prints to stderr what the
 `shade` spans counted (K4's launches a batch, the lanes through K4 and
-through the plain tail; `spans.shade_summary`). The stages run
+through the plain tail; `spans.shade_summary`) and what the `rng` spans
+counted (K5's launches a batch, the draws and values through K5 and
+through the plain version; `spans.rng_summary`). The stages run
 in the JAX CLI's order: --load-scene CACHE, else the model; then
 --debug-normals; then --save-scene CACHE (the npz layout both packages
 read, `models/serialization.py`); then the render. --nee (environment
@@ -171,10 +173,15 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
         try:
             rc = _run(cfg, device)
             if not was_on:
-                s = spans.shade_summary(spans.collect())
+                records = spans.collect()
+                s = spans.shade_summary(records)
                 print(f"spans: shade: K4 launches a batch {s['k4_launches_per_batch']}, lanes "
                       f"through K4 {s['k4_lanes']}, through the plain tail {s['plain_lanes']}",
                       file=sys.stderr)
+                r = spans.rng_summary(records)
+                print(f"spans: rng: K5 launches a batch {r['k5_launches_per_batch']}, draws "
+                      f"through K5 {r['k5_draws']} ({r['k5_width']} values), through the plain "
+                      f"version {r['plain_draws']} ({r['plain_width']} values)", file=sys.stderr)
         finally:
             if not was_on:
                 spans.disable()

@@ -26,7 +26,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from raytracing_c_tpu_torch.models.serialization import load_scene_cache
-from raytracing_c_tpu_torch.ops import shade_cuda
+from raytracing_c_tpu_torch.ops import rng_cuda, shade_cuda
 from raytracing_c_tpu_torch.ops import traverse_cuda as tc
 from raytracing_c_tpu_torch.parallel.mesh import make_mesh, replicate_scene
 from raytracing_c_tpu_torch.render.renderer import render
@@ -76,16 +76,19 @@ def render_scene_cache(mesh, path: str, renders):
     copy, and each dict of `renders` is one `render(scene, mesh=mesh,
     **kw)` (width and height among its keys). Returns, on every rank, one
     (image, RenderStats, launches) per render; launches lists each rank's
-    kernel launch counts in that render (`ops/traverse_cuda.launch_counts`
-    and `ops/shade_cuda.launch_counts`), in rank order."""
+    kernel launch counts in that render (`ops/traverse_cuda.launch_counts`,
+    `ops/shade_cuda.launch_counts` and `ops/rng_cuda.launch_counts`), in
+    rank order."""
     scene = load_scene_cache(path, device="cpu") if mesh.rank == 0 else None
     scene = replicate_scene(scene, mesh)
     results = []
     for kw in renders:
         tc.reset_launch_counts()
         shade_cuda.reset_launch_counts()
+        rng_cuda.reset_launch_counts()
         img, stats = render(scene, mesh=mesh, **kw)
         launches = [None] * mesh.world_size
-        dist.all_gather_object(launches, {**tc.launch_counts(), **shade_cuda.launch_counts()})
+        dist.all_gather_object(launches, {**tc.launch_counts(), **shade_cuda.launch_counts(),
+                                          **rng_cuda.launch_counts()})
         results.append((img, stats, launches))
     return results

@@ -27,7 +27,8 @@ PyTorch tail that K4 is held to.
 
 Spans (`utils/spans.py`, off by default): each bounce of `trace` and
 `trace_bucketed` is a `bounce` span (its index and the lanes that enter
-it) over the leaves `rng` (the slot-keyed draws), `intersect` (K1 and its
+it) over the leaves `rng` (the slot-keyed draw, one K5 launch on the card;
+`utils/rng.py` notes its kernel and width), `intersect` (K1 and its
 input packing; kind camera, bounce or shadow, and K1's wrapper notes the
 kernel it ran and its rays), `attrs`, `shade` (kernel `k4` or `plain` and
 the lanes it shades), `background` and `advance` (the plain tail's; K4's
@@ -328,7 +329,8 @@ def trace_bucketed(scene, origin: Vec3, direction: Vec3, key, max_bounces: int,
     (`nonzero` on the active mask) and the next bounce runs on those only.
     Each lane carries its sample slot; the bounce uniforms derive from
     (key, slot, bounce) exactly as the JAX package's
-    `uniform(fold_in(fold_in(key, slot), bounce), (nu,))`, so a sample's
+    `uniform(fold_in(fold_in(key, slot), bounce), (nu,))` (`rng.bounce_uniforms`:
+    one K5 launch a bounce on the card), so a sample's
     stream and the image do not depend on the compaction. Radiance lands in
     slot order as lanes retire (the final unpermute). With nee each lane
     draws 7 uniforms per bounce: 4 for the material, 3 for the light sample.
@@ -346,8 +348,7 @@ def trace_bucketed(scene, origin: Vec3, direction: Vec3, key, max_bounces: int,
             break
         with spans.span("bounce", index=i, lanes=slot.numel()):
             with spans.span("rng"):
-                lane_keys = rng.fold_in(rng.fold_in(key, slot), i)  # (n, 2)
-                rand = rng.uniform(lane_keys, (nu,)).T  # (nu, n)
+                rand = rng.bounce_uniforms(key, slot, i, nu)  # (nu, n)
             st = bounce_step(scene, st, rand[:4], method, texture_mode, rr=rr,
                              bounce_i=i, fuse_attr=i == 0, nee=nee,
                              rand2=rand[4:] if nee else None)

@@ -109,6 +109,15 @@ K4_MISS_OPS = {"plain": 3, "table": 3 + 36, "sphere": 3 + 8}
 #: the NEE add, per shaded lane: the finite test, three selects and sums
 NEE_ADD_OPS = 8
 
+#: K5 (csrc/rng.cu), one threefry2x32 block at the least instruction count:
+#: per round an add, a rotation (one funnel shift) and an xor (3 x 20), per
+#: key injection an add and a three-input add (2 x 5), the third key word
+#: (one three-input xor) and the two initial adds (3)
+THREEFRY_OPS = 73
+#: a uniform from a block's words: their xor, the mantissa's shift and or,
+#: the subtraction of 1 and the max with 0
+UNIFORM_WORD_OPS = 5
+
 
 def bound(work: dict) -> dict:
     """The larger of work["bytes"] over the memory rate and work["ops"]
@@ -300,3 +309,23 @@ def nee_add_work(n_lanes: int) -> dict:
     and written, its contribution) and operations for one launch over the
     shaded lanes."""
     return {"bytes": n_lanes * (8 + 4 + 12 + 12 + 12), "ops": n_lanes * NEE_ADD_OPS}
+
+
+def k5_bounce_work(lanes: int, nu: int) -> dict:
+    """K5's rt_bounce_uniforms over `lanes` lanes: bytes (a lane's int64
+    slot in, its nu float32 words out; the key once) and operations (the
+    two fold_ins and nu blocks a lane, and nu words)."""
+    return {"bytes": 16 + lanes * (8 + 4 * nu),
+            "ops": float(lanes * ((2 + nu) * THREEFRY_OPS + nu * UNIFORM_WORD_OPS))}
+
+
+def k5_uniform_work(words: int) -> dict:
+    """K5's rt_uniform under one key: bytes (the key in, `words` float32
+    out) and operations (a block and a word each)."""
+    return {"bytes": 16 + 4 * words, "ops": float(words * (THREEFRY_OPS + UNIFORM_WORD_OPS))}
+
+
+def k5_key_work(keys: int) -> dict:
+    """K5's rt_fold_in or rt_split writing `keys` keys from one: bytes (the
+    key in, two int64 words a key out) and operations (a block a key)."""
+    return {"bytes": 16 + 16 * keys, "ops": float(keys * THREEFRY_OPS)}

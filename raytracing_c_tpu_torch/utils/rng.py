@@ -14,6 +14,13 @@ so the port renders the same samples. A key is an int64 tensor of shape
 (..., 2) holding two uint32 words; torch has no full uint32 arithmetic, so
 the words live in int64 and every add and shift is masked to 32 bits.
 Leading key dimensions batch: a (w, 2) key tensor gives w streams at once.
+
+A draw whose key lies on the card is one launch of K5 (`ops/rng_cuda.py`,
+`csrc/rng.cu`); a CPU key takes the plain int64 version below, which the
+card tests hold K5 to bit for bit. `bounce_uniforms` is the compacted
+tracer's draw a bounce. While spans are on, each draw notes on the open
+span the kernel it went through (`k5` or `plain`) and adds its draws and
+its width, the values it wrote (`spans.rng_summary` reads them).
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+from raytracing_c_tpu_torch.ops import rng_cuda
+from raytracing_c_tpu_torch.utils import spans
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -53,11 +63,26 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, seed], dtype=torch.int64, device=device)
 
 
+def _draw(k5, plain, key: torch.Tensor, *args) -> torch.Tensor:
+    """One draw: K5's wrapper for a key on the card, else the plain
+    version; noted on the open span while spans are on."""
+    cuda = key.device.type == "cuda"
+    out = (k5 if cuda else plain)(key, *args)
+    if spans.enabled():
+        spans.note(kernel="k5" if cuda else "plain")
+        spans.add(draws=1, width=out.numel())
+    return out
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """jax.random.fold_in: threefry of the counter pair (0, data).
 
     data: a python int or an integer tensor broadcastable against the
     key's leading dimensions."""
+    return _draw(rng_cuda.fold_in, _fold_in_plain, key, data)
+
+
+def _fold_in_plain(key: torch.Tensor, data) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         data = data.to(torch.int64) & _M32
         zero = torch.zeros_like(data)
@@ -70,6 +95,10 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split (partitionable form): subkey i = threefry(key, (0, i)).
     Returns (num,) + key.shape."""
+    return _draw(rng_cuda.split, _split_plain, key, num)
+
+
+def _split_plain(key: torch.Tensor, num: int) -> torch.Tensor:
     i = torch.arange(num, dtype=torch.int64, device=key.device)
     i = i.reshape((num,) + (1,) * (key.dim() - 1))
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(i), i)
@@ -79,6 +108,10 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32-bit random words: bits1 ^ bits2 of threefry over the flat
     row-major counter. Returns key.shape[:-1] + shape (int64)."""
+    return _draw(rng_cuda.random_bits, _random_bits_plain, key, shape)
+
+
+def _random_bits_plain(key: torch.Tensor, shape) -> torch.Tensor:
     shape = tuple(shape)
     n = math.prod(shape)
     c = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
@@ -96,13 +129,32 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     max(minval, f * (maxval - minval) + minval) with one rounding of the
     multiply-add (XLA fuses it; the float64 product of two float32 is
     exact), the bounds and their difference in float32."""
-    bits = random_bits(key, shape)
+    return _draw(rng_cuda.uniform, _uniform_plain, key, shape, minval, maxval)
+
+
+def _uniform_plain(key: torch.Tensor, shape, minval: float = 0.0,
+                   maxval: float = 1.0) -> torch.Tensor:
+    bits = _random_bits_plain(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:
         return torch.clamp_min(f, 0.0)
     lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
     span = torch.tensor(maxval, dtype=torch.float32, device=f.device) - lo
     return torch.maximum(lo, (f.double() * span.double() + lo.double()).float())
+
+
+def bounce_uniforms(key: torch.Tensor, slot: torch.Tensor, bounce: int, nu: int) -> torch.Tensor:
+    """The compacted tracer's draw a bounce (integrator.trace_bucketed): for
+    the lanes' sample slots (n,) under one key (2,), the (nu, n) float32
+    plane uniform(fold_in(fold_in(key, slot), bounce), (nu,)).T, the JAX
+    package's slot-keyed stream. One K5 launch on the card (a contiguous
+    plane); on the CPU the plain composition (a transposed view)."""
+    return _draw(rng_cuda.bounce_uniforms, _bounce_uniforms_plain, key, slot, bounce, nu)
+
+
+def _bounce_uniforms_plain(key: torch.Tensor, slot: torch.Tensor, bounce: int,
+                           nu: int) -> torch.Tensor:
+    return _uniform_plain(_fold_in_plain(_fold_in_plain(key, slot), bounce), (nu,)).T
 
 
 #: Giles' single-precision erfinv polynomials, |w| < 5 and beyond (the

@@ -11,9 +11,9 @@ default.
 
 The program opens `with spans.span("shade"):` around each layer (PERF.md
 lists the names); a layer that learns a counter inside the span adds it
-with `spans.note(...)`, and a coarse stage whose wall the program also
-reports (a table's build seconds) is `spans.timed(name)`, one clock for
-both. A span records its name, its host start and end
+with `spans.note(...)` (or sums it there with `spans.add(...)`), and a
+coarse stage whose wall the program also reports (a table's build
+seconds) is `spans.timed(name)`, one clock for both. A span records its name, its host start and end
 (`time.perf_counter_ns`), its parent's id, the ids of its frame and batch
 (a `render` span opens a frame and a `batch` span a batch; every span
 inside them takes their ids) and its attributes, the counters of that
@@ -21,7 +21,8 @@ boundary (given at the call or noted inside; PERF.md says which reader
 reads each). A counter that lives on the device is `spans.tally(...)`ed
 into the open `render` span: summed there without a sync and read once,
 when that span closes, into its attributes. Records stay in memory until
-`collect()`; `shade_summary` reads the `shade` spans' counters.
+`collect()`; `shade_summary` reads the `shade` spans' counters and
+`rng_summary` the `rng` spans'.
 
 Off, `span` returns one shared no-op context after one check of a module
 flag: no record_function, no allocation in this module, no sync.
@@ -148,6 +149,17 @@ def note(**attrs) -> None:
         _open[-1]["attrs"].update(attrs)
 
 
+def add(**counts) -> None:
+    """Add numbers to the counters of the innermost open span, from inside
+    a layer that the span's caller may enter more than once (each threefry
+    draw adds itself to the open `rng` span); nothing while off or outside
+    every span."""
+    if _on and _open:
+        attrs = _open[-1]["attrs"]
+        for k, v in counts.items():
+            attrs[k] = attrs.get(k, 0) + v
+
+
 def tally(**counts) -> None:
     """Add counters (python ints or 0-d integer tensors, on any device) to
     those of the innermost open `render` span, which reads them when it
@@ -211,6 +223,25 @@ def shade_summary(records) -> dict:
     batches = sum(r["name"] == BATCH for r in records)
     return {"k4_launches_per_batch": launches / batches if batches else None,
             "k4_lanes": lanes["k4"], "plain_lanes": lanes["plain"]}
+
+
+def rng_summary(records) -> dict:
+    """What the `rng` spans of `records` say of K5, from the kernel (`k5` or
+    `plain`), draws and width that `utils/rng.py` notes on each: K5's
+    launches a batch (over the records' `batch` spans; None without one),
+    and the draws and the values drawn through K5 and through the plain
+    version."""
+    draws = {"k5": 0, "plain": 0}
+    width = {"k5": 0, "plain": 0}
+    for r in records:
+        if r["name"] == "rng" and "kernel" in r["attrs"]:
+            kernel = r["attrs"]["kernel"]
+            draws[kernel] += r["attrs"].get("draws", 0)
+            width[kernel] += r["attrs"].get("width", 0)
+    batches = sum(r["name"] == BATCH for r in records)
+    return {"k5_launches_per_batch": draws["k5"] / batches if batches else None,
+            "k5_draws": draws["k5"], "plain_draws": draws["plain"],
+            "k5_width": width["k5"], "plain_width": width["plain"]}
 
 
 def enabled() -> bool:

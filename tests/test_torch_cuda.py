@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1, K2, K3, K4) on the card against their plain
+"""The CUDA kernels (K1, K2, K3, K4, K5) on the card against their plain
 PyTorch versions, K1 also on the NEE shadow rays and under render(nee=True).
 
 Every test here is marked `cuda` and skips where there is no GPU. The file
@@ -12,7 +12,9 @@ plain versions' operation order, so hits and attribute planes are
 bit-equal to the plain versions run on the same card; so are K3's u8
 pixels (it sums the luminances in the plain version's order) and every
 plane of K4's bounce against the integrator's plain tail (`_tail_plain`)
-on the same lanes. The K1 tests run each of its two kernels (`k1_kernel`).
+on the same lanes; so is every word K5 draws against utils/rng.py's plain
+int64 threefry on CPU copies of the same keys. The K1 tests run each of
+its two kernels (`k1_kernel`).
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ import chip_smoke
 from raytracing_c_tpu_torch.models import scene as ps
 from raytracing_c_tpu_torch.ops import denoise as dn
 from raytracing_c_tpu_torch.ops import env_light
+from raytracing_c_tpu_torch.ops import rng_cuda as rc
 from raytracing_c_tpu_torch.ops import shade_cuda as sc
 from raytracing_c_tpu_torch.ops import traverse_cuda as tc
 from raytracing_c_tpu_torch.render import camera, integrator
@@ -523,3 +526,178 @@ def test_k4_bad_input_raises(cuda_device, fault):
     with pytest.raises(ValueError):
         _k4_call(scene, st, hit, rand4)
     assert sc.shade_bounce.launches == before
+
+
+# --- K5: the threefry draws (csrc/rng.cu, ops/rng_cuda.py) ---
+
+#: slots and data words at the ends of the uint32 range and beyond it (the
+#: plain version keeps the low 32 bits)
+K5_WORDS = [0, 1, 2, 7919, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1, 2**32, 2**40 + 3, -1]
+
+
+def _k5_key(device, seed: int = 4, b: int = 2):
+    return rng.fold_in(rng.prng_key(seed, device), b)
+
+
+def _k5_cases(device):
+    """(label, K5 call, the plain version's call on CPU copies, launches)."""
+    key = _k5_key(device)
+    keys = rng.split(key, 5)  # (5, 2)
+    words = torch.tensor(K5_WORDS + list(range(3, 3000, 7)), dtype=torch.int64)
+    wd = words.to(device)
+    w32 = torch.tensor([0, 1, 7919, 2**31 - 1, -1, -2**31], dtype=torch.int32)
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    return [
+        ("fold_in scalar", lambda: rng.fold_in(key, 123456789),
+         lambda: rng.fold_in(key.cpu(), 123456789)),
+        ("fold_in 2^32 - 1", lambda: rng.fold_in(key, 2**32 - 1),
+         lambda: rng.fold_in(key.cpu(), 2**32 - 1)),
+        ("fold_in words", lambda: rng.fold_in(key, wd), lambda: rng.fold_in(key.cpu(), words)),
+        ("fold_in int32 words", lambda: rng.fold_in(key, w32.to(device)),
+         lambda: rng.fold_in(key.cpu(), w32)),
+        ("fold_in keys x words", lambda: rng.fold_in(keys, wd[:5]),
+         lambda: rng.fold_in(keys.cpu(), words[:5])),
+        ("fold_in keys x scalar", lambda: rng.fold_in(keys, 7),
+         lambda: rng.fold_in(keys.cpu(), 7)),
+        ("fold_in 0-d device word", lambda: rng.fold_in(key, wd[3]),
+         lambda: rng.fold_in(key.cpu(), words[3])),
+        ("split 2", lambda: rng.split(key), lambda: rng.split(key.cpu())),
+        ("split 5", lambda: rng.split(key, 5), lambda: rng.split(key.cpu(), 5)),
+        ("split keys", lambda: rng.split(keys, 4), lambda: rng.split(keys.cpu(), 4)),
+        ("random_bits", lambda: rng.random_bits(key, (3, 129)),
+         lambda: rng.random_bits(key.cpu(), (3, 129))),
+        ("random_bits keys", lambda: rng.random_bits(keys, (7,)),
+         lambda: rng.random_bits(keys.cpu(), (7,))),
+        ("uniform jitter", lambda: rng.uniform(key, (2, 4099)),
+         lambda: rng.uniform(key.cpu(), (2, 4099))),
+        ("uniform dense", lambda: rng.uniform(key, (8, 4, 1000)),
+         lambda: rng.uniform(key.cpu(), (8, 4, 1000))),
+        ("uniform keys", lambda: rng.uniform(keys, (7,)),
+         lambda: rng.uniform(keys.cpu(), (7,))),
+        ("uniform [-1, 1)", lambda: rng.uniform(key, (3, 1000), -1.0, 1.0),
+         lambda: rng.uniform(key.cpu(), (3, 1000), -1.0, 1.0)),
+        ("uniform [0.25, 3.5)", lambda: rng.uniform(key, (3, 1000), 0.25, 3.5),
+         lambda: rng.uniform(key.cpu(), (3, 1000), 0.25, 3.5)),
+        ("uniform normal's bounds", lambda: rng.uniform(keys, (3, 1000), lo, 1.0),
+         lambda: rng.uniform(keys.cpu(), (3, 1000), lo, 1.0)),
+    ]
+
+
+def test_k5_draws_match_plain(cuda_device):
+    """Every K5 entry point (fold_in with a python int, a tensor of words,
+    batched keys and a 0-d word on the card; split; random_bits; uniform
+    on [0, 1) and bounded) against the plain int64 version on CPU copies of
+    the same keys: every word bit for bit, one launch a draw."""
+    for label, k5, plain in _k5_cases(cuda_device):
+        before = sum(rc.launch_counts().values())
+        got = k5()
+        torch.cuda.synchronize()
+        assert sum(rc.launch_counts().values()) == before + 1, label
+        want = plain()
+        assert got.device.type == "cuda" and got.dtype == want.dtype, label
+        assert got.shape == want.shape, label
+        assert torch.equal(_bits(got.cpu()), _bits(want)), (
+            label, int((_bits(got.cpu()) != _bits(want)).sum()))
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 262_144])
+def test_k5_bounce_uniforms_match_plain(cuda_device, n):
+    """rt_bounce_uniforms against the plain composition
+    uniform(fold_in(fold_in(key, slot), bounce), (nu,)).T on CPU copies,
+    at nu 3, 4 and 7 and bounces 0, 1 and 7, on contiguous int64 slots
+    (with the ends of the uint32 range), a strided view and int32 slots:
+    a contiguous (nu, n) float32 plane, bit for bit; one launch a draw
+    (none for no lane)."""
+    key = _k5_key(cuda_device, 11, 3)
+    slots = torch.randperm(max(4 * n, 16), generator=torch.Generator().manual_seed(n))[:n]
+    slots[:min(n, 9)] = torch.tensor(K5_WORDS[:9])[:min(n, 9)]
+    sd = slots.to(cuda_device)
+    s32 = (slots % 2**31).to(torch.int32)
+    views = [("int64", sd, slots), ("int32", s32.to(cuda_device), s32)]
+    if n > 1:
+        views.append(("strided", sd[::2], slots[::2]))
+    for nu in (3, 4, 7):
+        for bounce in (0, 1, 7):
+            for label, s_d, s_h in views:
+                before = rc.launch_counts()["rng_bounce_uniforms"]
+                got = rng.bounce_uniforms(key, s_d, bounce, nu)
+                torch.cuda.synchronize()
+                want = rng.uniform(rng.fold_in(rng.fold_in(key.cpu(), s_h), bounce), (nu,)).T
+                assert got.shape == (nu, s_d.shape[0]) and got.is_contiguous()
+                assert rc.launch_counts()["rng_bounce_uniforms"] == before + (s_d.numel() > 0)
+                assert torch.equal(_bits(got.cpu()), _bits(want.contiguous())), (
+                    nu, bounce, label)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_k5_through_render(cuda_device, monkeypatch, nee):
+    """A compacted render() batch of 262,144 samples on the stand-in: K5
+    launches 4 times a batch (fold_in of the batch, split, the jitter,
+    fold_in(key, 1)) and once a bounce run, the `rng` spans count those
+    draws through K5 and none through the plain version, and the planes
+    each bounce hands K4 (rand4, and with nee rand2) are the rows of that
+    bounce's K5 draw, bit-equal to the plain composition on the same
+    slots on the CPU."""
+    from raytracing_c_tpu_torch.render import integrator as it
+    from raytracing_c_tpu_torch.utils import spans
+
+    scene = chip_smoke.procedural_scene(ps, np, torch, cuda_device, tex=256)
+    if nee:
+        scene = chip_smoke.with_env_map(ps, torch, scene, chip_smoke.make_env_map(256, 128))
+    draws, handed = [], []
+    draw, tail = rng.bounce_uniforms, it._tail_k4
+
+    def keep_draw(key, slot, bounce, nu):
+        out = draw(key, slot, bounce, nu)
+        draws.append((key.clone(), slot.clone(), bounce, nu, out))
+        return out
+
+    def keep_tail(scene_, st, hit, rays, rand4, *rest):
+        handed.append((rand4, rest[-1]))
+        return tail(scene_, st, hit, rays, rand4, *rest)
+
+    monkeypatch.setattr(rng, "bounce_uniforms", keep_draw)
+    monkeypatch.setattr(it, "_tail_k4", keep_tail)
+    rc.reset_launch_counts()
+    spans.enable()
+    try:
+        # 128 x 128 pixels at 16 spp: one batch of the main path's 262,144 lanes
+        _, stats = render(scene, 128, 128, spp=16, max_bounces=8, seed=9, nee=nee)
+        summary = spans.rng_summary(spans.collect())
+    finally:
+        spans.disable()
+    assert stats.batches == 1
+    bounces = len(draws)
+    assert 2 <= bounces <= 8 and len(handed) == bounces
+    launches = rc.launch_counts()
+    assert launches["rng_bounce_uniforms"] == bounces
+    assert sum(launches.values()) == 4 + bounces, launches
+    assert summary["k5_draws"] == 4 + bounces and summary["plain_draws"] == 0
+    assert summary["k5_launches_per_batch"] == 4 + bounces
+    nu = 7 if nee else 3
+    for i, ((key, slot, bounce, n_u, out), (rand4, rand2)) in enumerate(zip(draws, handed)):
+        assert bounce == i and n_u == nu and out.shape == (nu, slot.numel())
+        assert rand4.data_ptr() == out.data_ptr() and torch.equal(rand4, out[:4])
+        if nee:
+            assert torch.equal(rand2, out[4:])
+        want = rng.uniform(rng.fold_in(rng.fold_in(key.cpu(), slot.cpu()), i), (nu,)).T
+        assert torch.equal(_bits(out.cpu()), _bits(want.contiguous())), i
+
+
+@pytest.mark.parametrize("fault", ["cpu_key", "float_slot", "batched_key", "nu_0",
+                                   "other_device_data"])
+def test_k5_bad_input_raises(cuda_device, fault):
+    key = _k5_key(cuda_device)
+    keys = rng.split(key, 3)
+    slot = torch.arange(8, device=cuda_device)
+    call = {
+        "cpu_key": lambda: rc.bounce_uniforms(key.cpu(), slot.cpu(), 0, 3),
+        "float_slot": lambda: rc.bounce_uniforms(key, slot.float(), 0, 3),
+        "batched_key": lambda: rc.bounce_uniforms(keys, slot, 0, 3),
+        "nu_0": lambda: rc.bounce_uniforms(key, slot, 0, 0),
+        "other_device_data": lambda: rc.fold_in(key, torch.arange(4)),
+    }[fault]
+    before = rc.launch_counts()
+    with pytest.raises(ValueError):
+        call()
+    assert rc.launch_counts() == before

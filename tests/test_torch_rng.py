@@ -120,3 +120,85 @@ def test_slot_keyed_bounce_stream(nu):
         if nu == 7:
             got3 = rng.uniform(rng.fold_in(rng.fold_in(tk, torch.from_numpy(slots)), bounce), (3,)).T
             np.testing.assert_array_equal(want[:3], got3.numpy())
+
+
+#: slots at the ends of the uint32 range and between (the slot is folded in
+#: as a uint32 word)
+EDGE_SLOTS = np.array([0, 1, 2, 1000, 2**31 - 2, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1],
+                      dtype=np.int64)
+
+
+@pytest.mark.parametrize("bounce", [0, 1, 7])
+@pytest.mark.parametrize("nu", [3, 4, 7])
+def test_bounce_uniforms_matches_jax(nu, bounce):
+    """rng.bounce_uniforms, the compacted tracer's draw a bounce, on the CPU
+    (its plain composition) against jax.random's
+    uniform(fold_in(fold_in(kb1, slot), bounce), (nu,)), vmapped over the
+    slots: (nu, n), bit for bit, the slots 0, 2^31 - 1 and 2^32 - 1
+    among them."""
+    kb1 = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(77), 5), 1)
+    tk = rng.fold_in(rng.fold_in(rng.prng_key(77), 5), 1)
+    slots = np.concatenate([EDGE_SLOTS, np.arange(3, 4000, 13)])
+
+    def draw(s):
+        k = jax.random.fold_in(jax.random.fold_in(kb1, s), bounce)
+        return jax.random.uniform(k, (nu,), jnp.float32)
+
+    want = np.asarray(jax.vmap(draw, out_axes=1)(jnp.asarray(slots.astype(np.uint32))))
+    got = rng.bounce_uniforms(tk, torch.from_numpy(slots), bounce, nu)
+    assert got.shape == (nu, slots.size) and got.dtype == torch.float32
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("bounce", [0, 1, 7])
+def test_bounce_uniforms_prefix(bounce):
+    """nu = 3 (and 4) are the first rows of the NEE width nu = 7, so K4
+    reads the same material draws with and without NEE."""
+    tk = rng.fold_in(rng.prng_key(3), 9)
+    slots = torch.from_numpy(np.concatenate([EDGE_SLOTS, np.arange(10, 3000, 7)]))
+    got7 = rng.bounce_uniforms(tk, slots, bounce, 7)
+    for nu in (3, 4):
+        assert torch.equal(rng.bounce_uniforms(tk, slots, bounce, nu), got7[:nu])
+
+
+def test_cpu_draws_never_reach_k5(monkeypatch):
+    """Every draw on CPU tensors takes the plain int64 version: each public
+    draw and a render through the compacted tracer with NEE (so every
+    width is drawn) leave K5's launch counts at 0 and never load its
+    library."""
+    import chip_smoke
+    from raytracing_c_tpu_torch.models import scene as ps
+    from raytracing_c_tpu_torch.ops import rng_cuda
+    from raytracing_c_tpu_torch.render.renderer import render
+
+    def refuse():
+        raise AssertionError("a CPU draw reached K5's library")
+
+    monkeypatch.setattr(rng_cuda, "_library", refuse)
+    rng_cuda.reset_launch_counts()
+    key = rng.prng_key(5)
+    rng.split(rng.fold_in(key, torch.tensor(3)))
+    rng.normal(key, (2, 9))
+    rng.random_bits(key, (4,))
+    rng.bounce_uniforms(key, torch.arange(6), 2, 7)
+    scene = chip_smoke.procedural_scene(ps, np, torch, "cpu", n=8, tex=16)
+    _, stats = render(scene, 8, 6, spp=2, max_bounces=3, seed=1, nee=True)
+    assert stats.rays_traced > 0
+    assert rng_cuda.launch_counts() == {"rng_fold_in": 0, "rng_split": 0, "rng_bits": 0,
+                                        "rng_bounce_uniforms": 0}
+
+
+def test_k5_bounds():
+    """utils/bounds.py's counts for K5: the bounce draw at 262,144 lanes and
+    nu = 3 is operation-bound (5 blocks a lane), a few microseconds; the
+    dense batch draw of 8 x 4 x 262,144 words is operation-bound too."""
+    from raytracing_c_tpu_torch.utils import bounds
+
+    work = bounds.k5_bounce_work(262_144, 3)
+    assert work["bytes"] == 16 + 262_144 * 20
+    assert work["ops"] == 262_144 * (5 * bounds.THREEFRY_OPS + 3 * bounds.UNIFORM_WORD_OPS)
+    b = bounds.bound(work)
+    assert b["bound_by"] == "operations" and 0.001 < b["bound_ms"] < 0.01
+    assert bounds.bound(bounds.k5_uniform_work(8 * 4 * 262_144))["bound_by"] == "operations"
+    assert bounds.k5_key_work(2) == {"bytes": 48, "ops": 2.0 * bounds.THREEFRY_OPS}
+    assert bounds.bound(bounds.k5_bounce_work(0, 7))["bound_ms"] < 1e-5

@@ -209,6 +209,34 @@ def test_shade_span_names_its_kernel_and_lanes(scene, model_dir, monkeypatch, sp
     assert 64 < int(line[0].rsplit(" ", 1)[1]) <= 128
 
 
+def test_rng_span_names_its_kernel_and_width(scene, model_dir, monkeypatch, spans_off,
+                                             capsys):
+    """On the CPU every draw goes through the plain version: each `rng`
+    span carries kernel "plain", its draws and its width (the values
+    written; a bounce's is its lanes x 3 uniforms), and the summary (and
+    the CLI's --profile line) counts 4 draws a batch and one a bounce, none
+    through K5."""
+    (_, stats), recs = _recorded(lambda: render(scene, 16, 12, **SMALL))
+    by_id = {r["id"]: r for r in recs}
+    rng_spans = [r for r in recs if r["name"] == "rng"]
+    assert rng_spans and all(r["attrs"]["kernel"] == "plain" and r["attrs"]["draws"] >= 1
+                             and r["attrs"]["width"] > 0 for r in rng_spans)
+    bounces = [r for r in recs if r["name"] == "bounce"]
+    in_bounce = [r for r in rng_spans if by_id[r["parent"]]["name"] == "bounce"]
+    assert [r["attrs"] for r in in_bounce] == [
+        {"kernel": "plain", "draws": 1, "width": b["attrs"]["lanes"] * 3} for b in bounces]
+    s = spans.rng_summary(recs)
+    assert s == {"k5_launches_per_batch": 0.0, "k5_draws": 0, "plain_draws":
+                 4 * stats.batches + len(bounces), "k5_width": 0,
+                 "plain_width": sum(r["attrs"]["width"] for r in rng_spans)}
+    assert spans.rng_summary([])["k5_launches_per_batch"] is None
+    monkeypatch.chdir(model_dir)
+    assert cli.main(["-W", "8", "-H", "8", "-S", "1", "-B", "2", "--profile", "sprof",
+                     "-O", "s.png", "standin.obj"], device="cpu") == 0
+    line = [x for x in capsys.readouterr().err.splitlines() if x.startswith("spans: rng")]
+    assert len(line) == 1 and "through K5 0 (0 values), through the plain version " in line[0]
+
+
 def test_loaders_record_their_stages(model_dir, spans_off):
     _, recs = _recorded(lambda: load_scene(str(model_dir / "standin.obj"),
                                            background_path=str(model_dir / "background.png"),
