@@ -858,7 +858,7 @@ def phase3_k4(torch, scene_d, scene_env, failures, reps: int = 20) -> dict:
     each bounce through K4's tail and the plain tail, K4's and the NEE
     add's device ms and bounds, the shade spans' counters over two frames.
     Returns the kernels line's figures for shade_bounce and nee_add."""
-    from raytracing_c_tpu_torch.ops import shade_cuda, traverse
+    from raytracing_c_tpu_torch.ops import cuda_build, shade_cuda, traverse
     from raytracing_c_tpu_torch.render import integrator, renderer
     from raytracing_c_tpu_torch.utils import bounds, spans
     from raytracing_c_tpu_torch.utils.vec3 import Vec3
@@ -868,9 +868,9 @@ def phase3_k4(torch, scene_d, scene_env, failures, reps: int = 20) -> dict:
         batch_ms = batch_bound_ms = 0.0
         for b, (st, hit, rays, rand4, rest) in enumerate(k4_bounce_lanes(scene, nee)):
             method, mode, rr, bounce_i, _, rand2 = rest
-            before = shade_cuda.launch_counts()
+            before = cuda_build.launch_counts()
             got = integrator._tail_k4(scene, st, hit, rays, rand4, *rest)
-            after = shade_cuda.launch_counts()
+            after = cuda_build.launch_counts()
             plain_hit = {**hit, "is_hit": st["active"] & torch.isfinite(hit["t"])}
             tail_plain = lambda: integrator._tail_plain(  # noqa: E731
                 scene, st, plain_hit, rays, rand4, *rest)
@@ -878,7 +878,7 @@ def phase3_k4(torch, scene_d, scene_env, failures, reps: int = 20) -> dict:
             torch.cuda.synchronize()
             bad, err = k4_mismatch(torch, got, want)
             res["err"] = max(res["err"], err)
-            launched = {k: after[k] - before[k] for k in after}
+            launched = {k: after[k] - before[k] for k in ("shade_bounce", "nee_add")}
 
             attrs = integrator.k4_attr_planes(scene, st["origin"], st["direction"], hit, method)
             k4 = lambda: shade_cuda.shade_bounce(  # noqa: E731
@@ -1673,7 +1673,6 @@ def main(argv) -> int:
         from raytracing_c_tpu_torch.ops import cuda_build
         from raytracing_c_tpu_torch.ops import denoise as dn
         from raytracing_c_tpu_torch.ops import env_light
-        from raytracing_c_tpu_torch.ops import rng_cuda, shade_cuda
         from raytracing_c_tpu_torch.ops import traverse_cuda as tc
         from raytracing_c_tpu_torch.parallel import launch
         from raytracing_c_tpu_torch.render import lightmap, renderer
@@ -1684,16 +1683,6 @@ def main(argv) -> int:
     if "--flagship-only" in argv:
         return flagship_only(np, torch, int(argv[argv.index("--flagship-only") + 1]))
     save = argv[argv.index("--save") + 1] if "--save" in argv else None
-
-    def reset_counts():
-        tc.reset_launch_counts()
-        dn.denoise_u8.launches = 0
-        shade_cuda.reset_launch_counts()
-        rng_cuda.reset_launch_counts()
-
-    def counts():
-        return {**tc.launch_counts(), "denoise_u8": dn.denoise_u8.launches,
-                **shade_cuda.launch_counts(), **rng_cuda.launch_counts()}
 
     t_start = time.perf_counter()
     failures = []
@@ -1826,10 +1815,10 @@ def main(argv) -> int:
         spp = max(1, int(SPP * RENDER_BUDGET_S / (per_batch_s * n_batches)))
         print(f"phase4 cut: {per_batch_s:.2f} s/batch x {n_batches} batches exceeds "
               f"{RENDER_BUDGET_S:.0f} s; rendering {spp} spp instead of {SPP}", flush=True)
-    reset_counts()
+    cuda_build.reset_launch_counts()
     img, st = renderer.render(scene_d, WIDTH, HEIGHT, spp=spp, max_bounces=BOUNCES,
                               seed=0, method="auto")
-    launches4 = counts()
+    launches4 = cuda_build.launch_counts()
     distinct = len(np.unique(img.reshape(-1, 3), axis=0))
     main_ok = (launches4["bvh_traverse"] > 0 and launches4["bvh_traverse_wide"] > 0
                and launches4["fetch_attrs"] > 0 and launches4["shade_bounce"] > 0
@@ -1924,11 +1913,11 @@ def main(argv) -> int:
         out = os.path.join(tmp, "cli_out.png")
         argv7 = ["-W", str(WIDTH), "-H", str(HEIGHT), "-S", str(spp), "-B", str(BOUNCES),
                  "-D", "-V", "-O", out, "standin.glb"]
-        reset_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         rc, text = run_cli(cli, argv7, tmp)
         cli_wall = time.perf_counter() - t0
-        launches7 = counts()
+        launches7 = cuda_build.launch_counts()
 
         img7 = image_io.load_image_rgb_u8(out) if rc == 0 else np.zeros((1, 1, 3), np.uint8)
         sky = len(np.unique(img7[:64].reshape(-1, 3), axis=0))
@@ -1963,11 +1952,11 @@ def main(argv) -> int:
         out8 = os.path.join(tmp, "nee_out.png")
         argv8 = ["-W", str(WIDTH), "-H", str(HEIGHT), "-S", str(SPP), "-B", str(BOUNCES),
                  "--nee", "-D", "-V", "--save-scene", cache, "-O", out8, "standin.glb"]
-        reset_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         rc8, text8 = run_cli(cli, argv8, tmp)
         wall8 = time.perf_counter() - t0
-        launches8 = counts()
+        launches8 = cuda_build.launch_counts()
         said8 = {key: num(pattern, text8) for key, pattern in CLI_STAGES}
         img8 = image_io.load_image_rgb_u8(out8) if rc8 == 0 else np.zeros((1, 1, 3), np.uint8)
         sky8 = len(np.unique(img8[:64].reshape(-1, 3), axis=0))
@@ -2062,6 +2051,7 @@ def main(argv) -> int:
                                       failures)
 
     # --- phase 11: the parity gate against the JAX package's references ---
+    reset_counts, counts = cuda_build.reset_launch_counts, cuda_build.launch_counts
     parity, launches11 = phase11_parity(np, reset_counts, counts, failures)
 
     # --- phase 12: the BVH inspector, its overlay through the render path ---

@@ -1,10 +1,14 @@
-"""One build for every CUDA kernel of the package.
+"""One build and one launch path for every CUDA kernel of the package.
 
 Each `csrc/*.cu` compiles with nvcc into a shared library of its own with a
 plain C interface (`lib<stem>.so`), all nvcc processes started together,
 into `raytracing_c_tpu_torch/_build/<hash>/`. The hash covers every source
 and the flags, so editing any source rebuilds them all. Wrappers load their
 library with `library(stem)` through ctypes. A failed build raises.
+
+Every kernel launch goes through `launch`, which picks the device and its
+stream, raises on a failed launch and counts it by kernel name;
+`launch_counts()` and `reset_launch_counts()` read and zero the counts.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -79,3 +85,31 @@ def library(stem: str) -> ctypes.CDLL:
     use). Each wrapper module loads its library once and declares its
     functions' argtypes."""
     return ctypes.CDLL(str(build_libraries()["libraries"][stem]))
+
+
+#: launches since the last reset, by kernel: K1's one-thread and eight-lane
+#: kernels, K2, K3, K4 and its NEE add, and K5's four draws
+_COUNTS = dict.fromkeys(
+    ("bvh_traverse", "bvh_traverse_wide", "fetch_attrs", "denoise_u8", "shade_bounce",
+     "nee_add", "rng_fold_in", "rng_split", "rng_bits", "rng_bounce_uniforms"), 0)
+
+
+def launch(name: str, entry, *args, device) -> None:
+    """entry(*args, stream): one launch of kernel `name` through its
+    library's C entry, on `device`'s current stream whichever device is
+    current. Raises on a non-zero return; counts the launch under `name`."""
+    with torch.cuda.device(device):
+        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    _COUNTS[name] += 1
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last `reset_launch_counts`."""
+    return dict(_COUNTS)
+
+
+def reset_launch_counts() -> None:
+    for name in _COUNTS:
+        _COUNTS[name] = 0

@@ -14,8 +14,8 @@ luminance outliers in quiet neighbourhoods toward the median, on the 8-bit
 image (u8 -> f32 / 255.999 -> u8).
 
 `denoise_u8` given a CPU tensor runs `denoise_u8_plain`; given a CUDA
-tensor it launches K3 or raises. It counts its launches in
-`denoise_u8.launches`. K3 selects the median with the compare-exchange
+tensor it launches K3 through `cuda_build.launch`, which counts the
+launches, or raises. K3 selects the median with the compare-exchange
 network `MEDIAN9_NETWORK` on the keys (luminance key << 4 | index),
 which picks the plain version's stable-sort median exactly.
 """
@@ -112,13 +112,6 @@ def denoise_u8(img: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(img)
         if h == 0 or w == 0:
             return out
-        with torch.cuda.device(dev):  # the launch goes to the current device
-            err = _library().rt_denoise_u8(img.data_ptr(), out.data_ptr(), h, w,
-                                           torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"denoise_u8: CUDA launch failed with error {err}")
-        denoise_u8.launches += 1
+        cuda_build.launch("denoise_u8", _library().rt_denoise_u8, img.data_ptr(),
+                          out.data_ptr(), h, w, device=dev)
         return out
-
-
-denoise_u8.launches = 0

@@ -15,9 +15,9 @@ No TPU kernel: the JAX package draws through `jax.random`. `utils/rng.py`
 calls these wrappers for CUDA keys; the card tests hold K5 to its plain
 version bit for bit. A wrapper launches on its tensors' device or raises
 (a CPU tensor, a wrong dtype or shape, a failed launch); there is no
-fallback. Launches are counted per kernel in `launch_counts()`. The
-library builds with every other kernel of the package at first use
-(`ops/cuda_build.py`).
+fallback. Each launch goes through `cuda_build.launch`, which counts it
+under the name in the table's last column. The library builds with every
+other kernel of the package at first use (`ops/cuda_build.py`).
 """
 
 from __future__ import annotations
@@ -33,10 +33,6 @@ from raytracing_c_tpu_torch.ops import cuda_build
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _M32 = 0xFFFFFFFF
-
-#: launches per kernel: random_bits and uniform share k5_bits_kernel
-_launches = {"rng_fold_in": 0, "rng_split": 0, "rng_bits": 0, "rng_bounce_uniforms": 0}
-
 
 @functools.cache
 def _library() -> ctypes.CDLL:
@@ -70,15 +66,6 @@ def _rows(t: torch.Tensor, width: int):
     return t.contiguous(), width
 
 
-def _launch(kernel: str, fn, *args, device) -> None:
-    """fn(*args, stream) on `device`'s current stream, counted as `kernel`."""
-    with torch.cuda.device(device):  # the launch goes to the current device
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
-    _launches[kernel] += 1
-
-
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """rng.fold_in on the card: key (..., 2) and data a python int or an
     integer tensor broadcastable against the key's leading dimensions (a
@@ -99,8 +86,8 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     out = torch.empty(lead + (2,), dtype=torch.int64, device=key.device)
     m = math.prod(lead)
     if m:
-        _launch("rng_fold_in", _library().rt_fold_in, keys.data_ptr(), key_s, ptr, data_s,
-                scalar, m, out.data_ptr(), device=key.device)
+        cuda_build.launch("rng_fold_in", _library().rt_fold_in, keys.data_ptr(), key_s, ptr,
+                          data_s, scalar, m, out.data_ptr(), device=key.device)
     return out
 
 
@@ -110,8 +97,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     keys, key_s = _rows(key, 2)
     out = torch.empty((num,) + key.shape, dtype=torch.int64, device=key.device)
     if out.numel():
-        _launch("rng_split", _library().rt_split, keys.data_ptr(), key_s, key[..., 0].numel(),
-                num, out.data_ptr(), device=key.device)
+        cuda_build.launch("rng_split", _library().rt_split, keys.data_ptr(), key_s,
+                          key[..., 0].numel(), num, out.data_ptr(), device=key.device)
     return out
 
 
@@ -123,8 +110,9 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     keys, key_s = _rows(key, 2)
     out = torch.empty(key.shape[:-1] + shape, dtype=torch.int64, device=key.device)
     if out.numel():
-        _launch("rng_bits", _library().rt_random_bits, keys.data_ptr(), key_s,
-                key[..., 0].numel(), math.prod(shape), out.data_ptr(), device=key.device)
+        cuda_build.launch("rng_bits", _library().rt_random_bits, keys.data_ptr(), key_s,
+                          key[..., 0].numel(), math.prod(shape), out.data_ptr(),
+                          device=key.device)
     return out
 
 
@@ -140,9 +128,9 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     lo = torch.tensor(minval, dtype=torch.float32)
     span = torch.tensor(maxval, dtype=torch.float32) - lo
     if out.numel():
-        _launch("rng_bits", _library().rt_uniform, keys.data_ptr(), key_s, key[..., 0].numel(),
-                math.prod(shape), float(lo), float(span), int(bounded), out.data_ptr(),
-                device=key.device)
+        cuda_build.launch("rng_bits", _library().rt_uniform, keys.data_ptr(), key_s,
+                          key[..., 0].numel(), math.prod(shape), float(lo), float(span),
+                          int(bounded), out.data_ptr(), device=key.device)
     return out
 
 
@@ -163,18 +151,7 @@ def bounce_uniforms(key: torch.Tensor, slot: torch.Tensor, bounce: int, nu: int)
     out = torch.empty((nu, n), dtype=torch.float32, device=key.device)
     if n:
         key = key.contiguous()
-        _launch("rng_bounce_uniforms", _library().rt_bounce_uniforms, key.data_ptr(),
-                slot.data_ptr(), slot.stride(0), int(bounce) & _M32, nu, n, out.data_ptr(),
-                device=key.device)
+        cuda_build.launch("rng_bounce_uniforms", _library().rt_bounce_uniforms, key.data_ptr(),
+                          slot.data_ptr(), slot.stride(0), int(bounce) & _M32, nu, n,
+                          out.data_ptr(), device=key.device)
     return out
-
-
-def launch_counts() -> dict:
-    """K5's launches per kernel: rng_fold_in, rng_split, rng_bits (random_bits
-    and uniform) and rng_bounce_uniforms."""
-    return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0

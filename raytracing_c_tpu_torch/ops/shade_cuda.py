@@ -10,8 +10,8 @@ is the integrator's own tail, `render/integrator.py: _tail_plain`, which
 the integrator runs for CPU tensors and the card tests hold K4 to; for
 CUDA tensors the integrator calls `shade_bounce`, which launches K4 or
 raises. There is no fallback from a failed build or launch. The wrappers
-launch on their tensors' device and count their launches in
-`<wrapper>.launches`. The library builds with every other kernel of the
+launch on their tensors' device through `cuda_build.launch`, which counts
+the launches. The library builds with every other kernel of the
 package at first use (`ops/cuda_build.py`).
 """
 
@@ -211,16 +211,9 @@ def shade_bounce(scene, st: dict, t, attrs, rand4, rand2=None, texture_mode: str
         return res
     args = _pack_args(scene, st, t, attrs, rand4, rand2, flags, rr, gamble,
                       texture_mode == "nearest", out, mask)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = _library().rt_shade_bounce(ctypes.byref(args), flags,
-                                         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"shade_bounce: CUDA launch failed with error {err}")
-    shade_bounce.launches += 1
+    cuda_build.launch("shade_bounce", _library().rt_shade_bounce, ctypes.byref(args), flags,
+                      device=dev)
     return res
-
-
-shade_bounce.launches = 0
 
 
 def nee_add(k4: dict, lanes: torch.Tensor, shot_t: torch.Tensor) -> None:
@@ -235,23 +228,6 @@ def nee_add(k4: dict, lanes: torch.Tensor, shot_t: torch.Tensor) -> None:
     n = lanes.shape[0]
     if n == 0:
         return
-    with torch.cuda.device(dev):
-        err = _library().rt_nee_add(out[9].data_ptr(), out[19].data_ptr(), out.shape[1],
-                                    lanes.data_ptr(), shot_t.data_ptr(), shot_t.stride(0), n,
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"nee_add: CUDA launch failed with error {err}")
-    nee_add.launches += 1
-
-
-nee_add.launches = 0
-
-
-def launch_counts() -> dict:
-    """Launches per kernel: K4 (shade_bounce) and the NEE add (nee_add)."""
-    return {"shade_bounce": shade_bounce.launches, "nee_add": nee_add.launches}
-
-
-def reset_launch_counts() -> None:
-    shade_bounce.launches = 0
-    nee_add.launches = 0
+    cuda_build.launch("nee_add", _library().rt_nee_add, out[9].data_ptr(), out[19].data_ptr(),
+                      out.shape[1], lanes.data_ptr(), shot_t.data_ptr(), shot_t.stride(0), n,
+                      device=dev)

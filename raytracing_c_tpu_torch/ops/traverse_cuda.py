@@ -11,8 +11,7 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version in this
 module (K1's walks the tree with `ops/traverse.py:intersect_bvh_culled`);
 given CUDA tensors it launches the kernel or raises. There is no
 fallback from a failed build or launch. Each wrapper launches on its
-tensors' device, whichever device is current, and counts its launches in
-`<wrapper>.launches`.
+tensors' device through `cuda_build.launch`, which counts the launches.
 
 K2 and K1's epilogue read the scene's `Triangles.attr_rows`. K1 walks a
 node table and a triangle table laid out for the card (`K1Tables`), built
@@ -20,9 +19,10 @@ once per scene from `BVH.nodes` and `Triangles.leaf_rows` by
 `build_k1_tables` and cached on the BVH by `k1_tables`; the source tables
 stay as they are. K1 is two kernels: one thread per ray for a launch of
 WIDE_BELOW rays or more, eight lanes per ray below (csrc/traverse.cu says
-why); `launch_counts` counts them apart. The TPU package's compacted, split and one-hot tables
-have no counterpart. The library builds with every other kernel of the
-package at first use (`ops/cuda_build.py`).
+why); they are counted apart, as `bvh_traverse` and `bvh_traverse_wide`.
+The TPU package's compacted, split and one-hot tables have no counterpart.
+The library builds with every other kernel of the package at first use
+(`ops/cuda_build.py`).
 """
 
 from __future__ import annotations
@@ -74,11 +74,6 @@ def _check_table(name: str, t: torch.Tensor, device) -> None:
         )
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
-
-
 # ---------------------------------------------------------------------------
 # K2: hit attributes
 # ---------------------------------------------------------------------------
@@ -112,17 +107,9 @@ def fetch_attrs(attr_rows: torch.Tensor, tri, u, v) -> torch.Tensor:
     out = torch.empty((16, r), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = _library().rt_fetch_attrs(
-            tri.data_ptr(), u.data_ptr(), v.data_ptr(), attr_rows.data_ptr(),
-            out.data_ptr(), r, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on(err, "fetch_attrs")
-    fetch_attrs.launches += 1
+    cuda_build.launch("fetch_attrs", _library().rt_fetch_attrs, tri.data_ptr(), u.data_ptr(),
+                      v.data_ptr(), attr_rows.data_ptr(), out.data_ptr(), r, device=dev)
     return out
-
-
-fetch_attrs.launches = 0
 
 
 def attrs_to_dict(o: torch.Tensor) -> dict:
@@ -393,36 +380,17 @@ def bvh_traverse(origin: Vec3, direction: Vec3, triangles, bvh, active=None,
     if r == 0:
         return res
     wide = r < WIDE_BELOW
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = _library().rt_bvh_traverse(
-            rays.data_ptr(), r, tables.nodes.data_ptr(), tables.root,
-            tables.tris.data_ptr(), triangles.attr_rows.data_ptr(),
-            out.data_ptr(), tri.data_ptr(),
-            attrs.data_ptr() if fuse_attr else None, int(wide),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on(err, "bvh_traverse")
+    cuda_build.launch(
+        "bvh_traverse_wide" if wide else "bvh_traverse", _library().rt_bvh_traverse,
+        rays.data_ptr(), r, tables.nodes.data_ptr(), tables.root, tables.tris.data_ptr(),
+        triangles.attr_rows.data_ptr(), out.data_ptr(), tri.data_ptr(),
+        attrs.data_ptr() if fuse_attr else None, int(wide), device=dev)
     spans.note(kernel="wide" if wide else "thread", rays=r)
-    if wide:
-        bvh_traverse.wide_launches += 1
-    else:
-        bvh_traverse.launches += 1
     return res
 
 
+# Not counts: cuda_build counts K1's launches. benchmark/harness/trace.py
+# (record_k1) still copies these two attributes onto its wrapper of
+# bvh_traverse and back, so they stay until the benchmark drops that copy.
 bvh_traverse.launches = 0
 bvh_traverse.wide_launches = 0
-
-
-def reset_launch_counts() -> None:
-    bvh_traverse.launches = 0
-    bvh_traverse.wide_launches = 0
-    fetch_attrs.launches = 0
-
-
-def launch_counts() -> dict:
-    """Launches per kernel: K1 with one thread per ray (bvh_traverse) and
-    with eight lanes per ray (bvh_traverse_wide), K2 (fetch_attrs)."""
-    return {"bvh_traverse": bvh_traverse.launches,
-            "bvh_traverse_wide": bvh_traverse.wide_launches,
-            "fetch_attrs": fetch_attrs.launches}

@@ -26,8 +26,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from raytracing_c_tpu_torch.models.serialization import load_scene_cache
-from raytracing_c_tpu_torch.ops import rng_cuda, shade_cuda
-from raytracing_c_tpu_torch.ops import traverse_cuda as tc
+from raytracing_c_tpu_torch.ops import cuda_build
 from raytracing_c_tpu_torch.parallel.mesh import make_mesh, replicate_scene
 from raytracing_c_tpu_torch.render.renderer import render
 
@@ -76,19 +75,16 @@ def render_scene_cache(mesh, path: str, renders):
     copy, and each dict of `renders` is one `render(scene, mesh=mesh,
     **kw)` (width and height among its keys). Returns, on every rank, one
     (image, RenderStats, launches) per render; launches lists each rank's
-    kernel launch counts in that render (`ops/traverse_cuda.launch_counts`,
-    `ops/shade_cuda.launch_counts` and `ops/rng_cuda.launch_counts`), in
-    rank order."""
+    launch counts of every kernel in that render
+    (`ops/cuda_build.launch_counts`; denoise_u8 is 0, render() does not
+    denoise), in rank order."""
     scene = load_scene_cache(path, device="cpu") if mesh.rank == 0 else None
     scene = replicate_scene(scene, mesh)
     results = []
     for kw in renders:
-        tc.reset_launch_counts()
-        shade_cuda.reset_launch_counts()
-        rng_cuda.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         img, stats = render(scene, mesh=mesh, **kw)
         launches = [None] * mesh.world_size
-        dist.all_gather_object(launches, {**tc.launch_counts(), **shade_cuda.launch_counts(),
-                                          **rng_cuda.launch_counts()})
+        dist.all_gather_object(launches, cuda_build.launch_counts())
         results.append((img, stats, launches))
     return results

@@ -19,7 +19,7 @@ import torch
 
 import chip_smoke
 from raytracing_c_tpu_torch.models import scene as ps
-from raytracing_c_tpu_torch.ops import env_light
+from raytracing_c_tpu_torch.ops import cuda_build, env_light
 from raytracing_c_tpu_torch.ops import traverse_cuda as tc
 from raytracing_c_tpu_torch.render import camera, integrator
 from raytracing_c_tpu_torch.render.renderer import render
@@ -231,11 +231,11 @@ def test_k1_matches_the_oracle_on_a_deep_tree(cuda_device, k1_kernel, n_tri, dep
     scene, rays, want = _card_rays(n_tri)
     assert scene.bvh.depth == depth
     for kind, (o, d) in rays.items():
-        tc.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         shadow = kind.startswith("shadow")
         got = tc.bvh_traverse(o, d, scene.triangles, scene.bvh, fuse_attr=not shadow)
         torch.cuda.synchronize()
-        assert tc.launch_counts()[k1_kernel] == 1, kind
+        assert cuda_build.launch_counts()[k1_kernel] == 1, kind
         for k in ("tri", "t", "u", "v") + (() if shadow else ("attrs",)):
             torch.testing.assert_close(got[k], want[kind][k], rtol=0, atol=0,
                                        msg=f"{kind} {k}")

@@ -85,9 +85,9 @@ def test_matches_pallas_interpret():
 
 def test_cpu_tensor_takes_plain_version():
     img = torch.from_numpy(_fireflies((9, 11, 3), 2))
-    before = dn.denoise_u8.launches
+    before = cuda_build.launch_counts()["denoise_u8"]
     torch.testing.assert_close(dn.denoise_u8(img), dn.denoise_u8_plain(img), rtol=0, atol=0)
-    assert dn.denoise_u8.launches == before
+    assert cuda_build.launch_counts()["denoise_u8"] == before
 
 
 @pytest.mark.parametrize("bad", [

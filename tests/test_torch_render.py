@@ -18,12 +18,14 @@ import torch
 
 from raytracing_c_tpu.render import integrator as jint
 from raytracing_c_tpu.render import renderer as jren
+from raytracing_c_tpu_torch.ops import cuda_build
 from raytracing_c_tpu_torch.render import integrator as tint
 from raytracing_c_tpu_torch.render import renderer as tren
 from raytracing_c_tpu_torch.utils import rng as trng
 
 from helpers import random_mesh, simple_scene
-from torch_port_helpers import aimed_rays, jvec, np3, port_scene, psnr, quad_sphere_scene, tvec
+from torch_port_helpers import (aimed_rays, jvec, np3, port_scene, psnr, quad_sphere_scene,
+                                set_thread_budget, tvec)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -120,6 +122,37 @@ def test_render_nee_casts_shadow_rays(scenes):
     _, plain = tren.render(ts, 8, 8, spp=2, max_bounces=3)
     assert img.shape == (8, 8, 3) and img.std() > 0
     assert ts.env_light is None and st.rays_traced > plain.rays_traced
+
+
+#: every kernel the package launches, by the name cuda_build counts it under
+KERNELS = ("bvh_traverse", "bvh_traverse_wide", "fetch_attrs", "denoise_u8", "shade_bounce",
+           "nee_add", "rng_fold_in", "rng_split", "rng_bits", "rng_bounce_uniforms")
+
+
+def test_cpu_render_leaves_every_launch_count_at_zero(scenes):
+    """The launch registry names every kernel of the package, and a CPU
+    render with NEE (plain versions throughout) launches none of them."""
+    ts = scenes["quad_sphere"][1]
+    cuda_build.reset_launch_counts()
+    _, st = tren.render(ts, 8, 8, spp=2, max_bounces=3, nee=True)
+    assert st.rays_traced > 0
+    assert cuda_build.launch_counts() == dict.fromkeys(KERNELS, 0)
+
+
+def test_thread_budget_splits_the_cores_among_xdist_workers(monkeypatch):
+    """torch_port_helpers gives each test process cpu_count // the xdist
+    workers (at least one) intra-op threads: in force in this process, and
+    for any worker count."""
+    cores = os.cpu_count() or 1
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch.get_num_threads() == max(1, cores // workers)
+    try:
+        for n in (1, 2, 6, 4 * cores):
+            monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", str(n))
+            assert set_thread_budget() == max(1, cores // n) == torch.get_num_threads(), n
+    finally:
+        monkeypatch.undo()
+        set_thread_budget()
 
 
 def test_port_imports_no_jax(tmp_path):

@@ -1,9 +1,13 @@
 """Helpers for the port's tests (tests/test_torch_*.py): carry a JAX scene
-and JAX inputs across to raytracing_c_tpu_torch through numpy."""
+and JAX inputs across to raytracing_c_tpu_torch through numpy.
+
+Importing this module also sets PyTorch's CPU thread budget for the test
+process (`set_thread_budget`)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +18,27 @@ from raytracing_c_tpu_torch.models import scene as ps
 from raytracing_c_tpu_torch.utils.vec3 import Vec3
 
 from helpers import quad_mesh, simple_scene
+
+
+def set_thread_budget() -> int:
+    """Give this process's PyTorch an even share of the machine's cores:
+    cpu_count // the number of pytest-xdist workers (PYTEST_XDIST_WORKER_COUNT,
+    which xdist sets in every worker; 1 outside xdist), at least one.
+    Returns the share.
+
+    PyTorch's intra-op pool defaults to every core in each process, so W
+    workers on N cores run W x N threads, and each op over a plane of rays
+    waits at a barrier among them: the port's tests then run several times
+    slower than alone. Every xdist worker collects every test module before
+    it runs a test, so the port's test modules, which import this one, set
+    the budget in every worker before its first test."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = max(1, (os.cpu_count() or 1) // workers)
+    torch.set_num_threads(threads)
+    return threads
+
+
+set_thread_budget()
 
 
 def jax_scene_arrays(obj, prefix: str = "") -> dict[str, np.ndarray]:
