@@ -3,9 +3,11 @@
 Counterpart of `raytracing_c_tpu/io/image_io.py`, without PIL: PNG is
 decoded and encoded here on zlib + numpy (8-bit colour types 0/2/3/4/6,
 non-interlaced, filters 0-4, alpha dropped), so a model's textures and the
-environment map load where Pillow is absent. Other formats (JPEG) decode
-through Pillow only where it imports. Encoders PNG/QOI/PPM are picked by
-the output suffix (driver.c:839-874). QOI goes through the native C codec
+environment map load where Pillow is absent; the decoder's row filters are
+undone by the native C unfilter (`native/png.c`), of which `_unfilter` is
+the plain version. Other formats (JPEG) decode through Pillow only where it
+imports. Encoders PNG/QOI/PPM are picked by the output suffix
+(driver.c:839-874). QOI goes through the native C codec
 (`raytracing_c_tpu_torch/native`, built with the system C compiler at first
 use; it raises if none builds it); `qoi_encode_plain`/`qoi_decode_plain`,
 the JAX package's pure-Python codec, are its plain version.
@@ -60,6 +62,15 @@ def png_scanlines(data: bytes, name: str = "<png bytes>"):
     """Parse an 8-bit, non-interlaced PNG down to its filtered scanlines.
     Returns (width, height, colour type, palette bytes or None, filter type
     per row (H,) u8, filtered rows (H, W * samples) u8)."""
+    w, h, ctype, plte, rows = _png_rows(data, name)
+    return w, h, ctype, plte, rows[:, 0], rows[:, 1:]
+
+
+def _png_rows(data: bytes, name: str):
+    """`png_scanlines`'s parse, with the scanlines as zlib returns them:
+    (width, height, colour type, palette bytes or None, (H, 1 + W * samples)
+    u8 rows over the inflated bytes, each its filter type and its filtered
+    bytes)."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {name}")
     pos, ihdr, plte, idat = 8, None, None, []
@@ -95,15 +106,23 @@ def png_scanlines(data: bytes, name: str = "<png bytes>"):
     ftypes = rows[:, 0]
     if h and int(ftypes.max()) > 4:
         raise ValueError(f"PNG filter type {int(ftypes.max())} is not defined: {name}")
-    return w, h, ctype, plte, ftypes, rows[:, 1:]
+    return w, h, ctype, plte, rows
 
 
 def decode_png(data: bytes, name: str = "<png bytes>") -> np.ndarray:
     """8-bit, non-interlaced PNG -> (H, W, 3) u8 (grey replicated, palette
-    looked up, alpha dropped)."""
-    w, h, ctype, plte, ftypes, filtered = png_scanlines(data, name)
+    looked up, alpha dropped). The native unfilter reads zlib's output
+    where it lies; under spans, the open span (the `decode` span of
+    `decode_image_rgb_u8`) notes the rows of each filter type."""
+    from raytracing_c_tpu_torch.native import png_native
+
+    w, h, ctype, plte, rows = _png_rows(data, name)
     ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(ftypes, filtered.reshape(h, w, ch))
+    if spans.enabled():
+        n = np.bincount(rows[:, 0], minlength=5).tolist()
+        spans.note(unfilter="native", rows_none=n[0], rows_sub=n[1], rows_up=n[2],
+                   rows_avg=n[3], rows_paeth=n[4])
+    px = png_native().unfilter(rows, ch).reshape(h, w, ch)
     if ctype == 3:
         palette = np.frombuffer(plte, np.uint8, len(plte) // 3 * 3).reshape(-1, 3)
         if px.size and int(px.max()) >= len(palette):

@@ -1,13 +1,15 @@
-"""Native (C) host components, loaded through ctypes: the QOI codec.
+"""Native (C) host components, loaded through ctypes: the QOI codec and
+the PNG decoder's unfilter.
 
-Counterpart of `raytracing_c_tpu/native/__init__.py`, with the port's own
-copy of the source (`qoi.c`). It is compiled with the system C compiler
-(`cc`, else `gcc`, else `clang`) at first use into
-`raytracing_c_tpu_torch/_build/qoi-<hash>/libqoi.so`, the hash covering
-the source and the flags. There is no quiet fallback: if no compiler
-builds it, `qoi_native()` raises with the compilers' messages; the
-pure-Python codec in `io/image_io.py` is the plain version the tests hold
-it against.
+The QOI codec (`qoi.c`) is the port's own copy of
+`raytracing_c_tpu/native/qoi.c`; the unfilter (`png.c`) undoes a PNG's
+row filters for `io/image_io.py:decode_png`. Each source is compiled with
+the system C compiler (`cc`, else `gcc`, else `clang`) at first use into
+`raytracing_c_tpu_torch/_build/<stem>-<hash>/lib<stem>.so`, the hash
+covering the source and the flags. There is no quiet fallback: if no
+compiler builds it, `qoi_native()` or `png_native()` raises with the
+compilers' messages; the pure-Python codec and `_unfilter` in
+`io/image_io.py` are the plain versions the tests hold them against.
 """
 
 from __future__ import annotations
@@ -23,36 +25,40 @@ from pathlib import Path
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "qoi.c"
+QOI_SOURCE = _HERE / "qoi.c"
+PNG_SOURCE = _HERE / "png.c"
 BUILD_DIR = _HERE.parent / "_build"
 CC_FLAGS = ("-O2", "-shared", "-fPIC")
 _lock = threading.Lock()
 _qoi = None
+_png = None
 
 
-def _build() -> Path:
-    """Compile qoi.c unless a build of the same source and flags exists.
-    Returns the library's path; raises RuntimeError if no compiler builds it."""
-    key = hashlib.sha256(" ".join(CC_FLAGS).encode() + b"\0" + SOURCE.read_bytes())
-    out_dir = BUILD_DIR / f"qoi-{key.hexdigest()[:16]}"
-    so = out_dir / "libqoi.so"
+def _build(source: Path) -> Path:
+    """Compile the C file `source` unless a build of the same source and
+    flags exists. Returns the library's path; raises RuntimeError if no
+    compiler builds it."""
+    key = hashlib.sha256(" ".join(CC_FLAGS).encode() + b"\0" + source.read_bytes())
+    out_dir = BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}"
+    so = out_dir / f"lib{source.stem}.so"
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libqoi.{os.getpid()}.tmp"
+    tmp = out_dir / f"lib{source.stem}.{os.getpid()}.tmp"
     errors = []
     for cc in ("cc", "gcc", "clang"):
         path = shutil.which(cc)
         if path is None:
             errors.append(f"{cc}: not found")
             continue
-        cmd = [path, *CC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        cmd = [path, *CC_FLAGS, "-o", str(tmp), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         if proc.returncode == 0:
             os.replace(tmp, so)
             return so
         errors.append(f"{' '.join(cmd)} -> {proc.returncode}\n{proc.stdout}{proc.stderr}")
-    raise RuntimeError("the native QOI codec did not build:\n" + "\n".join(errors))
+    raise RuntimeError(f"the native library {source.name} did not build:\n"
+                       + "\n".join(errors))
 
 
 class QoiNative:
@@ -100,5 +106,42 @@ def qoi_native() -> QoiNative:
     global _qoi
     with _lock:
         if _qoi is None:
-            _qoi = QoiNative(ctypes.CDLL(str(_build())))
+            _qoi = QoiNative(ctypes.CDLL(str(_build(QOI_SOURCE))))
     return _qoi
+
+
+class PngNative:
+    """The C unfilter of a PNG's inflated scanlines."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        lib.png_unfilter.restype = ctypes.c_int
+        lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+                                     ctypes.c_int, ctypes.c_void_p]
+
+    def unfilter(self, rows: np.ndarray, bpp: int) -> np.ndarray:
+        """(H, 1 + stride) u8 scanlines, each a filter type byte and its
+        filtered bytes (a view of zlib's output: it is read in place), ->
+        the (H, stride) u8 reconstructed bytes of `bpp` (1-4) bytes a
+        pixel. Raises ValueError at the first filter type above 4."""
+        if rows.dtype != np.uint8 or rows.ndim != 2 or not rows.flags.c_contiguous:
+            raise ValueError(f"png unfilter: need C-contiguous (H, 1 + stride) u8 rows, "
+                             f"got {rows.shape} {rows.dtype}")
+        h, stride = rows.shape[0], rows.shape[1] - 1
+        if not 1 <= bpp <= 4 or stride < 0 or stride % bpp:
+            raise ValueError(f"png unfilter: {stride} bytes a row do not hold "
+                             f"pixels of {bpp} bytes")
+        out = np.empty((h, stride), np.uint8)
+        kind = self._lib.png_unfilter(rows.ctypes.data, h, stride, bpp, out.ctypes.data)
+        if kind:
+            raise ValueError(f"PNG filter type {kind} is not defined")
+        return out
+
+
+def png_native() -> PngNative:
+    """The native PNG unfilter, built and loaded at the first call."""
+    global _png
+    with _lock:
+        if _png is None:
+            _png = PngNative(ctypes.CDLL(str(_build(PNG_SOURCE))))
+    return _png

@@ -13,6 +13,8 @@ from PIL import Image
 
 from raytracing_c_tpu.io import image_io as jio
 from raytracing_c_tpu_torch.io import image_io as tio
+from raytracing_c_tpu_torch.native import png_native
+from raytracing_c_tpu_torch.utils import spans
 
 
 @pytest.fixture
@@ -92,8 +94,8 @@ def test_every_png_filter_type(img):
 @pytest.mark.parametrize("ch", [1, 2, 3, 4])
 @pytest.mark.parametrize("shape", [(1, 1), (1, 9), (9, 1), (17, 5), (6, 40)])
 def test_random_png_filters_decode(rng, ch, shape):
-    """Any mix of row filters (the anti-diagonal unfilter), and rows of
-    None/Sub/Up only (the row-at-a-time path), at every sample count."""
+    """Any mix of row filters, and rows of None/Sub/Up only, at every
+    sample count."""
     a = rng.integers(0, 256, (*shape, ch), dtype=np.uint8)
     want = np.repeat(a[..., :1], 3, axis=2) if ch <= 2 else a[..., :3]
     for kinds in (rng.integers(0, 5, shape[0]), rng.integers(0, 3, shape[0])):
@@ -113,6 +115,87 @@ def test_png_encoder_picks_filters_per_row(rng):
     with Image.open(io.BytesIO(data)) as im:
         np.testing.assert_array_equal(np.asarray(im), a)
     np.testing.assert_array_equal(tio.decode_png(data), a)
+
+
+#: the filter types of test_native_unfilter_equals_plain's rows, by type
+#: number, then random mixes of all five
+UNFILTER_KINDS = ["none", "sub", "up", "average", "paeth", "mixed"]
+
+
+@pytest.mark.parametrize("kinds", UNFILTER_KINDS)
+@pytest.mark.parametrize("shape", [(1, 1), (1, 9), (9, 1), (17, 5), (6, 40), (64, 257)])
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_native_unfilter_equals_plain(rng, bpp, shape, kinds):
+    """The native unfilter (native/png.c) against the plain `_unfilter`,
+    byte for byte, on random filtered bytes (any byte, not only what an
+    encoder writes): every row one filter type, or random mixes."""
+    h, w = shape
+    if kinds == "mixed":
+        mixes = [rng.integers(0, 5, h) for _ in range(3)]
+    else:
+        mixes = [np.full(h, UNFILTER_KINDS.index(kinds))]
+    for ftypes in mixes:
+        rows = rng.integers(0, 256, (h, 1 + w * bpp), dtype=np.uint8)
+        rows[:, 0] = ftypes
+        want = tio._unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
+        np.testing.assert_array_equal(png_native().unfilter(rows, bpp),
+                                      want.reshape(h, w * bpp))
+
+
+@pytest.mark.parametrize("rows, bpp", [
+    (np.zeros((4, 16), np.uint8)[:, ::2], 3),  # not contiguous
+    (np.zeros((4, 16), np.int16), 3),
+    (np.zeros((4, 16), np.uint8), 5),
+    (np.zeros((4, 16), np.uint8), 2),  # 15 bytes a row, not whole pixels of 2
+], ids=["strided", "int16", "bpp5", "partial_pixel"])
+def test_native_unfilter_rejects_other_arrays(rows, bpp):
+    with pytest.raises(ValueError, match="png unfilter"):
+        png_native().unfilter(rows, bpp)
+
+
+def test_encoded_noise_and_gradient_decode_as_plain(rng):
+    """A 256x256 gradient under noise, filtered per row by encode_png:
+    decode_png (the native unfilter) equals the plain unfilter and the
+    image."""
+    y, x = np.mgrid[0:256, 0:256]
+    a = np.stack([x, y, (x + y) // 2], -1).astype(np.uint8)
+    a += rng.integers(0, 24, a.shape, dtype=np.uint8)
+    data = tio.encode_png(a)
+    w, h, _, _, ftypes, filtered = tio.png_scanlines(data)
+    plain = tio._unfilter(ftypes, filtered.reshape(h, w, 3))
+    np.testing.assert_array_equal(plain, a)
+    np.testing.assert_array_equal(tio.decode_png(data), plain)
+
+
+def test_undefined_filter_type_raises(img):
+    """A filter type above 4: decode_png raises png_scanlines' ValueError,
+    which names the largest type and the file; the native routine on its
+    own stops at the first."""
+    data = _png_with_filters(img[:4], [0, 7, 9, 1])
+    for decode in (tio.decode_png, tio.decode_image_rgb_u8):
+        with pytest.raises(ValueError, match="^PNG filter type 9 is not defined: bad.png$"):
+            decode(data, name="bad.png")
+    rows = np.zeros((4, 1 + 3 * 5), np.uint8)
+    rows[:, 0] = [0, 7, 9, 1]
+    with pytest.raises(ValueError, match="^PNG filter type 7 is not defined$"):
+        png_native().unfilter(rows, 3)
+
+
+def test_decode_span_notes_the_rows_by_filter_type(img):
+    """Under spans, one decode_image_rgb_u8 call records one `decode` span
+    that notes the native unfilter and the rows of each filter type."""
+    data = _png_with_filters(img)
+    spans.enable()
+    try:
+        tio.decode_image_rgb_u8(data)
+        records = spans.collect()
+    finally:
+        spans.disable()
+    (rec,) = [r for r in records if r["name"] == "decode"]
+    assert rec["attrs"]["unfilter"] == "native"
+    got = [rec["attrs"][f"rows_{k}"] for k in ("none", "sub", "up", "avg", "paeth")]
+    assert got == np.bincount(tio.png_scanlines(data)[4], minlength=5).tolist()
+    assert sum(got) == img.shape[0] and min(got) > 0
 
 
 def test_16_bit_png_raises(tmp_path):

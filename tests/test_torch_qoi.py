@@ -1,9 +1,12 @@
 """The port's native QOI codec (raytracing_c_tpu_torch/native) against its
 plain version (the pure-Python codec in io/image_io.py) and the JAX
-package's native codec.
+package's native codec; and the build of the native libraries (the QOI
+codec and the PNG unfilter, which tests/test_torch_io.py checks).
 
 Tolerance: none. Encoded bytes are compared whole, decoded pixels exactly.
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -74,16 +77,27 @@ def test_built_into_the_package_build_dir():
     assert built and all(p.stat().st_size > 0 for p in built)
 
 
+@pytest.mark.parametrize("source", [native.QOI_SOURCE, native.PNG_SOURCE], ids=["qoi", "png"])
+def test_build_keyed_by_source_and_flags(source, monkeypatch):
+    """Each library builds into _build/<stem>-<hash of its flags and
+    source>/, and a second build of the same source reuses it."""
+    key = hashlib.sha256(" ".join(native.CC_FLAGS).encode() + b"\0" + source.read_bytes())
+    so = native._build(source)
+    assert so == native.BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}" / f"lib{source.stem}.so"
+    built = so.stat().st_mtime_ns
+    monkeypatch.setattr(native.subprocess, "run", lambda *a, **k: pytest.fail("compiled again"))
+    assert native._build(source) == so and so.stat().st_mtime_ns == built
+
+
 def test_no_quiet_fallback(tmp_path, monkeypatch):
     """A source the compiler refuses raises with the compiler's message,
     and so does a machine without a C compiler."""
     bad = tmp_path / "qoi.c"
     bad.write_text("int broken( {\n")
-    monkeypatch.setattr(native, "SOURCE", bad)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="did not build") as e:
-        native._build()
+        native._build(bad)
     assert "error" in str(e.value)
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="cc: not found"):
-        native._build()
+        native._build(bad)
