@@ -70,7 +70,8 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    method="brute" (PSNR >= 45 dB), and --load-scene of the saved cache at
    256x256 against the model: identical images;
 9. bake_lightmap of the stand-in at 512x512 texels, 16 samples, 8 bounces
-   through K1 (wall, texels, Mrays/s), and a 64x64, 4-sample bake through
+   through K1 (wall, triangles rasterized, texel records, texels covered,
+   Mrays/s), and a 64x64, 4-sample bake through
    K1 against the brute-force one (max abs difference <= LM_TOL); the
    native QOI codec on the phase-4 frame: byte-equal to the pure-Python
    encoder and decoded back (its build at first use, and both encoders,
@@ -98,8 +99,11 @@ Phases, one line each or more; any failure exits 1 and prints no result:
    card, seed 42, each against the JAX package's render of the same case
    (tools/make_torch_parity_refs.py, on the CPU): PSNR >= PSNR_MIN, printed
    beside the manifest's seed-42-vs-seed-43 floor and the share of
-   byte-equal pixels. glb_env and glb_nee are rendered twice and must be
-   byte-identical. The counters are zeroed just before and read just
+   byte-equal pixels. The lightmap case bakes the texel records the JAX
+   package reads, those of the slots below n_triangles (`jax_read_bake`),
+   and prints the texels that only the port's bake covers, from the
+   triangles beyond slot n. glb_env and glb_nee are rendered twice and
+   must be byte-identical. The counters are zeroed just before and read just
    after: both K1 kernels, K2 and K3 must have run;
 12. the BVH inspector (raytracing_c_tpu_torch/tools/bvh_viz.py) on the
    stand-in built on the card: (a) its OBJ dump, byte-identical to the
@@ -1112,7 +1116,44 @@ def run_parity_case(case: str, scene_dir: str, seed: int, out_dir: str, device="
                        warn=lambda *a, **k: None, device=device)
     if spec["entry"] == "render":
         return renderer.render(scene, seed=seed, **spec["kwargs"])[0]
-    return lightmap.bake_lightmap(scene, seed=seed, **spec["kwargs"])
+    return jax_read_bake(lightmap, scene, seed, **spec["kwargs"])
+
+
+def jax_read_bake(lightmap, scene, seed, width, height, samples, max_bounces):
+    """bake_lightmap's batches, keys and arithmetic on the texel records
+    the JAX package reads: it rasterizes the first n_triangles slots
+    (raytracing_c_tpu/render/lightmap.py:_rasterize_host), which on a
+    padded tree are the port's records of the slots below n, in the same
+    order. The port's own bake also covers the triangles beyond slot n,
+    and so draws other batches: the parity gate holds the arithmetic, the
+    records are held by tests/test_torch_lightmap.py. Returns the map."""
+    import numpy as np
+
+    from raytracing_c_tpu_torch.utils import rng
+
+    texels = lightmap.rasterize(scene, width, height)
+    read = texels.select(texels.slot < scene.n_triangles)
+    out = np.zeros((height * width, 3), np.float32)
+    batches = range(-(-len(read) // lightmap.BATCH_TEXELS))
+    lightmap.bake_batches(scene, read, out, rng.prng_key(seed, scene.device), batches,
+                          samples=samples, max_bounces=max_bounces,
+                          batch_texels=lightmap.BATCH_TEXELS, method="auto")
+    return out.reshape(height, width, 3)
+
+
+def port_only_texels(scene_dir: str, spec: dict, device="cuda"):
+    """The lightmap case's texels that only the port covers (written only
+    by triangles beyond slot n_triangles, which the JAX package does not
+    read) and all the texels the port covers."""
+    from raytracing_c_tpu_torch.io.loader import load_scene
+    from raytracing_c_tpu_torch.render import lightmap
+
+    scene = load_scene(os.path.join(scene_dir, spec["model"]), background_path=None,
+                       warn=lambda *a, **k: None, device=device)
+    texels = lightmap.rasterize(scene, spec["kwargs"]["width"], spec["kwargs"]["height"])
+    below = set(texels.index[texels.slot < scene.n_triangles].tolist())
+    covered = set(texels.index.tolist())
+    return len(covered - below), len(covered)
 
 
 #: phase 10's parity renders (c): (width, height, spp, bounces, nee, batch
@@ -1279,6 +1320,11 @@ def phase11_parity(np, reset_counts, counts, failures, device="cuda"):
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(f"phase 11 parity {case}")
+            if spec["entry"] == "bake_lightmap":
+                only, covered = port_only_texels(scene_dir, spec, device)
+                cases[case]["port_only_texels"] = only
+                print(f"phase11 parity {case}: texels only the port's bake covers (triangles "
+                      f"beyond slot n) {only} of {covered}", flush=True)
             if case in PARITY_TWICE:
                 again = run_parity_case(case, scene_dir, seed, out_dir, device)
                 same = again.shape == got.shape and bool((again == got).all())
@@ -2009,6 +2055,7 @@ def main(argv) -> int:
     covered = int((lm != 0).any(-1).sum())
     ok = bool(np.isfinite(lm).all()) and covered > 512 * 512 // 4
     print(f"phase9 lightmap 512x512 samples=16 bounces={BOUNCES} (K1): wall_s={lm_wall:.3f} "
+          f"triangles_rasterized={st9['triangles']} of {scene_d.n_triangles} "
           f"texel_records={st9['texels']} texels_covered={covered} rays={st9['rays']} "
           f"mrays_per_s={st9['rays'] / lm_wall / 1e6:.4f} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:

@@ -15,6 +15,9 @@ glTF path (load_model_gltf, driver.c:589-683):
   normal_map_strength, and the 4 texture slots (base color, normal,
   metallic-roughness, emissive) (driver.c:640-658)
 - images decoded from bufferViews or URIs (driver.c:620-626)
+- a primitive's TEXCOORD_1, the lightmap UV set importers generate, into
+  `HostMesh.lightmap_uvs` where any primitive has one (zero elsewhere: a
+  bake skips triangles with no UV area)
 """
 
 from __future__ import annotations
@@ -248,7 +251,7 @@ def load_gltf(path: str, atlas: AtlasBuilder | None = None, warn=print):
         break
 
     # ---- meshes -> triangle soup ------------------------------------------
-    all_pos, all_nrm, all_uv, all_mat = [], [], [], []
+    all_pos, all_nrm, all_uv, all_uv1, all_mat = [], [], [], [], []
     for ni, node in enumerate(nodes):
         mi = node.get("mesh", -1)
         if mi < 0:
@@ -278,6 +281,8 @@ def load_gltf(path: str, atlas: AtlasBuilder | None = None, warn=print):
                 )
             else:
                 uv = np.zeros((len(pos), 2), np.float32)
+            uv1 = (_read_accessor(doc, buffers, attrs["TEXCOORD_1"]).astype(np.float32)[idx]
+                   if "TEXCOORD_1" in attrs else None)
 
             pos_w = pos @ rot.T + w[:3, 3]
             tri_pos = pos_w[idx]  # (n, 3, 3)
@@ -296,6 +301,7 @@ def load_gltf(path: str, atlas: AtlasBuilder | None = None, warn=print):
             all_pos.append(tri_pos.astype(np.float32))
             all_nrm.append(tri_nrm.astype(np.float32))
             all_uv.append(uv[idx])
+            all_uv1.append(uv1)
             all_mat.append(
                 np.full(len(idx), prim.get("material", 0), np.int32)
             )
@@ -306,6 +312,9 @@ def load_gltf(path: str, atlas: AtlasBuilder | None = None, warn=print):
             normals=np.concatenate(all_nrm),
             uvs=np.concatenate(all_uv),
             mat_id=np.concatenate(all_mat),
+            lightmap_uvs=(np.concatenate([np.zeros_like(u) if u1 is None else u1
+                                          for u, u1 in zip(all_uv, all_uv1)])
+                          if any(u1 is not None for u1 in all_uv1) else None),
         )
     else:
         mesh = HostMesh(

@@ -331,6 +331,10 @@ class Scene:
     background: Background
     camera: Camera
     n_triangles: int = 0
+    #: the lightmap UV set (`HostMesh.lightmap_uvs`) in slot order, (capacity,
+    #: 3, 2) float32 and zero in empty slots, or None; kept on the host, where
+    #: the bake's rasterizer is its only reader (`render/lightmap.py`)
+    lightmap_uvs: np.ndarray | None = None
     #: env-light sampling tables (ops/env_light.EnvLight) for NEE over an
     #: equirect background: derived from the atlas, built by the first NEE
     #: render (`env_light.scene_env_light`), never read from arrays or files
@@ -356,6 +360,9 @@ class HostMesh:
     normals: np.ndarray  # (n, 3, 3) f32
     uvs: np.ndarray  # (n, 3, 2) f32
     mat_id: np.ndarray  # (n,) i32
+    #: a second, unique UV set for lightmaps (glTF TEXCOORD_1), (n, 3, 2)
+    #: f32, or None: a bake rasterizes it in place of `uvs`
+    lightmap_uvs: np.ndarray | None = None
 
 
 def compute_tangents(positions: np.ndarray, uvs: np.ndarray):
@@ -390,28 +397,31 @@ def compute_tangents(positions: np.ndarray, uvs: np.ndarray):
     )
 
 
+def place_in_slots(a: np.ndarray, slot_map: np.ndarray) -> np.ndarray:
+    """Per-triangle rows `a` placed in the BVH build's leaf slots (-1 =
+    empty padding slot -> zero)."""
+    valid = slot_map >= 0
+    out = a[np.where(valid, slot_map, 0)]
+    out[~valid] = 0
+    return out
+
+
 def pack_triangles(mesh: HostMesh, slot_map: np.ndarray) -> Triangles:
     """Pack host triangles into the SoA layout by the BVH build's leaf-slot
-    assignment (-1 = empty padding slot -> all zero)."""
+    assignment (-1 = empty padding slot -> all zero). The lightmap UV set,
+    which no kernel reads, is placed by `build_scene` the same way."""
     capacity = len(slot_map)
     if capacity % BVH_WIDTH:
         raise ValueError(f"capacity {capacity} is not a multiple of {BVH_WIDTH}")
     valid = slot_map >= 0
-    idx = np.where(valid, slot_map, 0)
-
-    def place(a: np.ndarray) -> np.ndarray:
-        out = a[idx]
-        out[~valid] = 0
-        return out
-
-    pos = place(mesh.positions.astype(np.float32))
-    nrm = place(mesh.normals.astype(np.float32))
-    uv = place(mesh.uvs.astype(np.float32))
+    pos = place_in_slots(mesh.positions.astype(np.float32), slot_map)
+    nrm = place_in_slots(mesh.normals.astype(np.float32), slot_map)
+    uv = place_in_slots(mesh.uvs.astype(np.float32), slot_map)
     ng, tan, btn = compute_tangents(pos, uv)
     ng[~valid] = 0.0
     tan[~valid] = 0.0
     btn[~valid] = 0.0
-    mat = mesh.mat_id.astype(np.int32)[idx]
+    mat = place_in_slots(mesh.mat_id.astype(np.int32), slot_map)
     mat[~valid] = -1
 
     v0, v1, v2 = pos[:, 0], pos[:, 1], pos[:, 2]
@@ -469,15 +479,18 @@ def build_scene(
 ) -> Scene:
     """scene_init (scene.c:416-426): build the BVH (`sah` picks the splitter,
     `models/bvh.py:build_bvh`) and pack the SoA store on the host, then put
-    the scene on `device`. Spans: `bvh` (the build and the packing; its
-    triangles, depth, slots and occupied leaf blocks), `upload`, and K1's
-    `k1_tables` on a GPU."""
+    the scene on `device`; the mesh's lightmap UV set, if any, stays on the
+    host in slot order (`Scene.lightmap_uvs`). Spans: `bvh` (the build and
+    the packing; its triangles, depth, slots and occupied leaf blocks),
+    `upload`, and K1's `k1_tables` on a GPU."""
     from raytracing_c_tpu_torch.models.bvh import build_bvh
 
     dev = resolve_device(device)
     with spans.span("bvh"):
         bvh, slot_map, capacity = build_bvh(mesh, sah)
         triangles = pack_triangles(mesh, slot_map)
+        lightmap_uvs = (None if mesh.lightmap_uvs is None else
+                        place_in_slots(np.asarray(mesh.lightmap_uvs, np.float32), slot_map))
         if spans.enabled():
             spans.note(triangles=int(mesh.positions.shape[0]), depth=bvh.depth, slots=capacity,
                        blocks=int((slot_map.reshape(-1, BVH_WIDTH) >= 0).any(1).sum()))
@@ -491,6 +504,7 @@ def build_scene(
             background=background,
             camera=camera,
             n_triangles=int(mesh.positions.shape[0]),
+            lightmap_uvs=lightmap_uvs,
         ).to(dev)
     return _with_k1_tables(scene)
 

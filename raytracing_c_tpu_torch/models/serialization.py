@@ -12,7 +12,9 @@ toward +inf in bfloat16 (`utils/bf16.py`), and `atlas_pages`, the texels
 packed r<<16|g<<8|b in 128-lane rows. On load the port ignores every key
 it has no field for, and rebuilds K1's tables on a GPU as `build_scene`
 does. The env-light table is never stored: a NEE render rebuilds it from
-the atlas.
+the atlas. A scene with a lightmap UV set (`Scene.lightmap_uvs`) also
+writes it, in slot order, as `tri_lightmap_uv` (capacity, 3, 2); a cache
+without that key, as every JAX cache, loads without the set.
 """
 
 from __future__ import annotations
@@ -121,6 +123,8 @@ def save_scene_cache(path: str, scene: Scene) -> None:
     data["atlas_pages"] = atlas_pages(data["atlas_tex_r"], data["atlas_tex_g"],
                                       data["atlas_tex_b"])
     _save_vec3(data, "sph_center", scene.spheres.center)
+    if scene.lightmap_uvs is not None:
+        data["tri_lightmap_uv"] = np.asarray(scene.lightmap_uvs, np.float32)
     np.savez_compressed(path, **data)
 
 
@@ -156,6 +160,8 @@ def load_scene_cache(path: str, device="cuda") -> Scene:
                 camera=Camera(view_matrix=t("camera_view"), fov=t("camera_fov"),
                               focal_length=t("camera_focal")),
                 n_triangles=n_triangles,
+                lightmap_uvs=(np.array(z["tri_lightmap_uv"]) if "tri_lightmap_uv" in z.files
+                              else None),
             )
         with spans.span("upload"):
             scene = scene.to(dev)

@@ -140,3 +140,47 @@ def test_missing_texture_degrades_with_warning(files, tmp_path):
     assert mats[0].tex_albedo == jmats[0].tex_albedo == -1
     assert any("albedo.png" in w for w in warnings) and len(warnings) == len(jwarn)
     assert os.path.exists(tmp_path / "mr.png")
+
+
+def _glb(doc: dict, blob: bytes) -> bytes:
+    """A GLB container of a glTF document and its binary buffer."""
+    import struct
+
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    body = struct.pack("<II", len(js), 0x4E4F534A) + js + struct.pack("<II", len(blob), 0x004E4942)
+    return struct.pack("<III", 0x46546C67, 2, 12 + len(body) + len(blob)) + body + blob
+
+
+def test_glb_texcoord_1_loads_as_lightmap_uvs(files, tmp_path):
+    """The stand-in GLB with a TEXCOORD_1 accessor added to its first
+    primitive: that primitive's triangles carry it as lightmap UVs, the
+    others zero; the rest of the mesh is unchanged. Without TEXCOORD_1 a
+    mesh carries no set."""
+    doc, blob = tg.parse_glb((files / "standin.glb").read_bytes())
+    plain, _, _, _ = tg.load_gltf(str(files / "standin.glb"), **QUIET)
+    assert plain.lightmap_uvs is None
+    prim = doc["meshes"][0]["primitives"][0]
+    count = doc["accessors"][prim["attributes"]["POSITION"]]["count"]
+    uv1 = np.random.default_rng(3).uniform(0, 1, (count, 2)).astype(np.float32)
+    blob = blob + b"\0" * (-len(blob) % 4)
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob), "byteLength": uv1.nbytes})
+    doc["accessors"].append({"bufferView": len(doc["bufferViews"]) - 1, "componentType": 5126,
+                             "count": count, "type": "VEC2"})
+    prim["attributes"]["TEXCOORD_1"] = len(doc["accessors"]) - 1
+    doc["buffers"][0]["byteLength"] = len(blob) + uv1.nbytes
+    (tmp_path / "lightmapped.glb").write_bytes(_glb(doc, blob + uv1.tobytes()))
+    mesh, _, _, _ = tg.load_gltf(str(tmp_path / "lightmapped.glb"), **QUIET)
+    for k in ("positions", "normals", "uvs", "mat_id"):
+        np.testing.assert_array_equal(getattr(mesh, k), getattr(plain, k))
+    idx = (tg._read_accessor(doc, [blob], prim["indices"]).astype(np.int64).reshape(-1, 3)
+           if "indices" in prim else np.arange(count).reshape(-1, 3))
+    first = len(idx)
+    assert mesh.lightmap_uvs.shape == mesh.uvs.shape and mesh.lightmap_uvs.dtype == np.float32
+    np.testing.assert_array_equal(mesh.lightmap_uvs[:first], uv1[idx])
+    assert first < len(mesh.uvs) and (mesh.lightmap_uvs[first:] == 0).all()
+    scene = tl.load_scene(str(tmp_path / "lightmapped.glb"), background_path=None, device="cpu",
+                          **QUIET)
+    assert scene.lightmap_uvs.shape == (scene.triangles.capacity, 3, 2)
+    assert np.isin(uv1[idx].reshape(-1, 2), scene.lightmap_uvs.reshape(-1, 2)).all()

@@ -130,3 +130,40 @@ def test_bf16_directed_rounding_matches_jax():
     for port, ref in ((tbf16.round_down, jbf16.round_down), (tbf16.round_up, jbf16.round_up)):
         np.testing.assert_array_equal(port(x), ref(x).view(np.uint16))
     np.testing.assert_array_equal(tbf16.to_bits(x), x.astype(jbf16.BF16).view(np.uint16))
+
+
+def test_lightmap_uvs_round_trip_and_an_old_cache_loads_without_them(tmp_path):
+    """A scene with a lightmap UV set saves it, in slot order, and loads it
+    back (the bake of the loaded scene is the same); a cache written
+    without it (the JAX package's, or a port scene's without a set) loads
+    with none, and the JAX loader still reads the port's cache."""
+    from raytracing_c_tpu_torch.models import scene as ps
+    from raytracing_c_tpu_torch.render.lightmap import bake_lightmap
+
+    rng = np.random.default_rng(4)
+    j = random_mesh(100, rng)
+    mesh = ps.HostMesh(j.positions, j.normals, j.uvs, j.mat_id,
+                       lightmap_uvs=rng.uniform(0, 1, j.uvs.shape).astype(np.float32))
+    ts = ps.build_scene(mesh, ps.MaterialTable.default(1), ps.TextureAtlas.empty(),
+                        ps.Background.constant((0.5, 0.6, 0.7)), ps.Camera.default(),
+                        device="cpu")
+    path = str(tmp_path / "lightmapped.npz")
+    tser.save_scene_cache(path, ts)
+    back = tser.load_scene_cache(path, device="cpu")
+    assert back.lightmap_uvs.dtype == np.float32
+    np.testing.assert_array_equal(back.lightmap_uvs, ts.lightmap_uvs)
+    kw = dict(samples=2, max_bounces=2, seed=3)
+    np.testing.assert_array_equal(bake_lightmap(back, 16, 16, **kw),
+                                  bake_lightmap(ts, 16, 16, **kw))
+    assert jser.load_scene_cache(path).n_triangles == 100
+    old = str(tmp_path / "old.npz")
+    tser.save_scene_cache(old, ps.build_scene(ps.HostMesh(j.positions, j.normals, j.uvs, j.mat_id),
+                                              ps.MaterialTable.default(1), ps.TextureAtlas.empty(),
+                                              ps.Background.constant((0.5, 0.6, 0.7)),
+                                              ps.Camera.default(), device="cpu"))
+    with np.load(old) as z:
+        assert "tri_lightmap_uv" not in z.files
+    assert tser.load_scene_cache(old, device="cpu").lightmap_uvs is None
+    jpath = str(tmp_path / "jax.npz")
+    jser.save_scene_cache(jpath, quad_sphere_scene())
+    assert tser.load_scene_cache(jpath, device="cpu").lightmap_uvs is None
