@@ -1,15 +1,18 @@
-"""Native (C) host components, loaded through ctypes: the QOI codec and
-the PNG decoder's unfilter.
+"""Native (C) host components, loaded through ctypes: the QOI codec, the
+PNG decoder's unfilter and the lightmap bake's UV rasterizer.
 
 The QOI codec (`qoi.c`) is the port's own copy of
 `raytracing_c_tpu/native/qoi.c`; the unfilter (`png.c`) undoes a PNG's
-row filters for `io/image_io.py:decode_png`. Each source is compiled with
-the system C compiler (`cc`, else `gcc`, else `clang`) at first use into
-`raytracing_c_tpu_torch/_build/<stem>-<hash>/lib<stem>.so`, the hash
-covering the source and the flags. There is no quiet fallback: if no
-compiler builds it, `qoi_native()` or `png_native()` raises with the
-compilers' messages; the pure-Python codec and `_unfilter` in
-`io/image_io.py` are the plain versions the tests hold them against.
+row filters for `io/image_io.py:decode_png`; the rasterizer (`raster.c`)
+makes the texel records of `render/lightmap.py:_rasterize`. Each source
+is compiled with the system C compiler (`cc`, else `gcc`, else `clang`) at
+first use into `raytracing_c_tpu_torch/_build/<stem>-<hash>/lib<stem>.so`,
+the hash covering the source and the flags; `-ffp-contract=off` keeps the
+rasterizer's float64 arithmetic in its plain version's order. There is no
+quiet fallback: if no compiler builds it, `qoi_native()`, `png_native()`
+or `raster_native()` raises with the compilers' messages; the pure-Python
+codec and `_unfilter` in `io/image_io.py` and `_rasterize_plain` in
+`render/lightmap.py` are the plain versions the tests hold them against.
 """
 
 from __future__ import annotations
@@ -27,11 +30,13 @@ import numpy as np
 _HERE = Path(__file__).resolve().parent
 QOI_SOURCE = _HERE / "qoi.c"
 PNG_SOURCE = _HERE / "png.c"
+RASTER_SOURCE = _HERE / "raster.c"
 BUILD_DIR = _HERE.parent / "_build"
-CC_FLAGS = ("-O2", "-shared", "-fPIC")
+CC_FLAGS = ("-O2", "-ffp-contract=off", "-shared", "-fPIC")
 _lock = threading.Lock()
 _qoi = None
 _png = None
+_raster = None
 
 
 def _build(source: Path) -> Path:
@@ -145,3 +150,61 @@ def png_native() -> PngNative:
         if _png is None:
             _png = PngNative(ctypes.CDLL(str(_build(PNG_SOURCE))))
     return _png
+
+
+class RasterNative:
+    """The C rasterizer of triangles' UV boxes into lightmap texel records."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        lib.raster_count.restype = ctypes.c_long
+        lib.raster_count.argtypes = [ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
+                                     ctypes.c_long, ctypes.POINTER(ctypes.c_long)]
+        lib.raster_fill.restype = ctypes.c_long
+        lib.raster_fill.argtypes = [ctypes.c_long] + [ctypes.c_void_p] * 8 + [
+            ctypes.c_long, ctypes.c_long] + [ctypes.c_void_p] * 5
+
+    def rasterize(self, uv: np.ndarray, v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
+                  n0: np.ndarray, n1: np.ndarray, n2: np.ndarray, slots: np.ndarray,
+                  width: int, height: int) -> tuple:
+        """n triangles, in record order: (n, 3, 2) f32 UVs in [0, 1] units,
+        (n, 3) f32 v0, e1, e2 and vertex normals n0, n1, n2, (n,) i64 slots,
+        all C-contiguous -> (index (T,) i64, position (T, 3) f32, normal
+        (T, 3) f32, slot (T,) i64, candidates, covered, overwritten) over a
+        width x height atlas."""
+        n = len(slots)
+        for name, a, dtype, shape in (
+                ("uv", uv, np.float32, (n, 3, 2)), ("v0", v0, np.float32, (n, 3)),
+                ("e1", e1, np.float32, (n, 3)), ("e2", e2, np.float32, (n, 3)),
+                ("n0", n0, np.float32, (n, 3)), ("n1", n1, np.float32, (n, 3)),
+                ("n2", n2, np.float32, (n, 3)), ("slots", slots, np.int64, (n,))):
+            if a.dtype != dtype or a.shape != shape or not a.flags.c_contiguous:
+                raise ValueError(f"raster: need C-contiguous {shape} {np.dtype(dtype)} {name}, "
+                                 f"got {a.shape} {a.dtype}")
+        if width < 1 or height < 1:
+            raise ValueError(f"raster: need an atlas of at least 1x1 texels, "
+                             f"got {width}x{height}")
+        candidates = ctypes.c_long()
+        t = self._lib.raster_count(n, uv.ctypes.data, width, height, candidates)
+        index, slot = np.empty(t, np.int64), np.empty(t, np.int64)
+        position, normal = np.empty((t, 3), np.float32), np.empty((t, 3), np.float32)
+        counts = np.zeros(2, np.int64)
+        got = self._lib.raster_fill(n, *(a.ctypes.data for a in (uv, v0, e1, e2, n0, n1, n2,
+                                                                  slots)),
+                                    width, height, index.ctypes.data, position.ctypes.data,
+                                    normal.ctypes.data, slot.ctypes.data, counts.ctypes.data)
+        if got < 0:
+            raise MemoryError(f"raster: no memory for the marks of a {width}x{height} atlas")
+        if got != t:
+            raise RuntimeError(f"raster: the fill pass wrote {got} of {t} records")
+        return (index, position, normal, slot, candidates.value, int(counts[0]),
+                int(counts[1]))
+
+
+def raster_native() -> RasterNative:
+    """The native lightmap rasterizer, built and loaded at the first call."""
+    global _raster
+    with _lock:
+        if _raster is None:
+            _raster = RasterNative(ctypes.CDLL(str(_build(RASTER_SOURCE))))
+    return _raster

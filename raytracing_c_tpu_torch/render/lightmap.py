@@ -28,8 +28,9 @@ into the direction and material keys.
 
 Spans (`utils/spans.py`, off by default): `bake` (width, height, samples,
 triangles read, texels covered, batches, rays) over `rasterize`
-(candidates: the arena's size; texels covered; overwritten: texels written
-by more than one triangle) and one `batch` span a texel batch (texels,
+(kernel: `native`, the C rasterizer `native/raster.c`; candidates: the
+texels of the triangles' UV boxes; texels covered; overwritten: texels
+written by more than one triangle) and one `batch` span a texel batch (texels,
 rays) that holds `rng` (the batch's keys, Gaussian and bounce draws),
 `raygen` (the hemisphere directions and the origins: the normals'
 normalisation, the repeat and the upload), the tracer's `bounce` spans and
@@ -86,9 +87,9 @@ class Texels:
 def rasterize(scene, width: int, height: int) -> Texels:
     """UV-space rasterization of every occupied slot's triangle into texel
     records: the bbox + barycentric inside test of raytracer.c:727-757,
-    vectorised over a flat arena of candidate texels (slot-major, then
-    row-major in the box, so overlapping triangles overwrite in ascending
-    slot order). Span: `rasterize`."""
+    triangle by triangle in ascending slot order, then row-major in the box
+    (so overlapping triangles overwrite in ascending slot order), in native
+    C (`native/raster.c`). Span: `rasterize`."""
     with spans.span("rasterize"):
         texels = _rasterize(scene, width, height)
         spans.note(candidates=texels.candidates, texels=texels.covered,
@@ -96,7 +97,10 @@ def rasterize(scene, width: int, height: int) -> Texels:
     return texels
 
 
-def _rasterize(scene, width: int, height: int) -> Texels:
+def _host_triangles(scene):
+    """The occupied slots (ascending, i64) and their triangles on the host:
+    (n, 3, 2) f32 UVs (the lightmap UV set where the scene has one, else the
+    texture UVs) and (n, 3) f32 v0, e1, e2, n0, n1, n2."""
     tris = scene.triangles
     occ = torch.nonzero(tris.mat_id >= 0).squeeze(1)
     slots = occ.cpu().numpy()
@@ -108,16 +112,33 @@ def _rasterize(scene, width: int, height: int) -> Texels:
         return np.stack([host(v.x), host(v.y), host(v.z)], axis=-1)
 
     if scene.lightmap_uvs is not None:
-        lm = scene.lightmap_uvs[slots]
-        uv0, uv1, uv2 = (lm[:, k] * [width, height] for k in range(3))
+        uv = np.ascontiguousarray(scene.lightmap_uvs[slots], np.float32)
     else:
-        uv0 = np.stack([host(tris.uv0u), host(tris.uv0v)], axis=-1) * [width, height]
-        uv1 = np.stack([host(tris.uv1u), host(tris.uv1v)], axis=-1) * [width, height]
-        uv2 = np.stack([host(tris.uv2u), host(tris.uv2v)], axis=-1) * [width, height]
-    v0 = planes(tris.v0)
-    v1 = v0 + planes(tris.e1)
-    v2 = v0 + planes(tris.e2)
-    n0, n1, n2 = planes(tris.n0), planes(tris.n1), planes(tris.n2)
+        uv = np.stack([host(a) for a in (tris.uv0u, tris.uv0v, tris.uv1u, tris.uv1v,
+                                         tris.uv2u, tris.uv2v)], axis=-1).reshape(-1, 3, 2)
+    return (slots, uv, planes(tris.v0), planes(tris.e1), planes(tris.e2), planes(tris.n0),
+            planes(tris.n1), planes(tris.n2))
+
+
+def _rasterize(scene, width: int, height: int) -> Texels:
+    """The texel records, from the native rasterizer; the same records,
+    byte for byte, as `_rasterize_plain`."""
+    from raytracing_c_tpu_torch.native import raster_native
+
+    slots, uv, v0, e1, e2, n0, n1, n2 = _host_triangles(scene)
+    index, position, normal, slot, candidates, covered, overwritten = \
+        raster_native().rasterize(uv, v0, e1, e2, n0, n1, n2, slots, width, height)
+    spans.note(kernel="native")
+    return Texels(index, position, normal, slot, len(slots), candidates, covered, overwritten)
+
+
+def _rasterize_plain(scene, width: int, height: int) -> Texels:
+    """The plain numpy version of `_rasterize`: a flat arena of candidate
+    texels (slot-major, then row-major in the box), float64 weights."""
+    slots, uv, v0, e1, e2, n0, n1, n2 = _host_triangles(scene)
+    uv0, uv1, uv2 = (uv[:, k] * [width, height] for k in range(3))
+    v1 = v0 + e1
+    v2 = v0 + e2
 
     denom = ((uv1[:, 1] - uv2[:, 1]) * (uv0[:, 0] - uv2[:, 0])
              + (uv2[:, 0] - uv1[:, 0]) * (uv0[:, 1] - uv2[:, 1]))

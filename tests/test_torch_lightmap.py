@@ -10,8 +10,10 @@ that fill their 8 leaf blocks, "quad" and "half_quad". The 100-triangle
 per-triangle rasterization written here and to the plain reference; its
 records below slot n are still the JAX package's, in its order.
 
-Tolerances: the host rasterization is the same numpy, so texel ids,
-positions and normals are compared exactly. A bake draws the same
+Tolerances: the host rasterization is the same float64 arithmetic in the
+same order (the port's in native C, native/raster.c, which
+tests/test_torch_raster_native.py holds to its plain numpy version), so
+texel ids, positions and normals are compared exactly. A bake draws the same
 threefry streams; its Gaussian directions go through erfinv, whose
 float32 result may differ from XLA's by 2 ulps (tests/test_torch_rng.py),
 and through the path integrator, so texels agree with the JAX package
